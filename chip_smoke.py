@@ -6,29 +6,46 @@
 
 Phases, in order; any failure raises and the exit code is non-zero:
 
-1. the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernel from ``src/repro_torch/csrc`` and print the build
-   time and ``nvcc``'s register report;
-3. kernel phase: ``tsar_matmul`` against its plain PyTorch version at the
-   eight (N, K, M) shapes of the ``bitnet-2b-4t`` serving step and at ragged
-   shapes, required ``torch.equal``; CUDA-event times (median of 21 CUDA-graph
-   replays, each cycling over enough weight copies to defeat the 50 MB L2)
-   beside the bytes bound and ``torch._int_mm`` on pre-decoded int8 weights;
-4. engine phase: full-width ``bitnet-2b-4t`` (30 layers, random weights from
-   seed 0) frozen to 2-bit planes and served through
-   ``repro_torch.serving.ServingEngine(device="cuda")``: 8 requests must
-   finish, every logit be finite and every token lie in ``[0, vocab)``, and
-   the kernel's launch count equal 210 x steps; a real ``w_gate`` projection
-   at N=20 must equal its plain version; a reduced-config step on the GPU
-   must agree with the same step on the CPU within 1e-4.
+1. the card's name and power limit (``nvidia-smi``), its properties beside
+   the planner's H100 constants (``repro_torch.core.hw``);
+2. build both CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
+   source, started together) and print the build time and ``nvcc``'s
+   register report;
+3. ``tsar_matmul`` kernel phase: the kernel against its plain PyTorch
+   version at the eight (N, K, M) shapes of the ``bitnet-2b-4t`` serving step
+   and at ragged shapes, required ``torch.equal``; CUDA-event times (median
+   of 21 CUDA-graph replays, each cycling over enough weight copies to
+   defeat the 50 MB L2) beside the bound and ``torch._int_mm`` on
+   pre-decoded int8 weights;
+4. ``tsar_sparse_padded`` kernel phase: the same eight shapes on padded
+   pools with half of the (256, 256) blocks dead (numpy seed 0), plus
+   ragged, empty-strip and all-zero-activation cases, required
+   ``torch.equal`` to the plain version; times beside the bound of the live
+   blocks, the dense ``tsar_matmul`` on the same decoded matrix and
+   ``torch._int_mm``;
+5. dense engine phase: full-width ``bitnet-2b-4t`` (30 layers, random
+   weights from seed 0) served through ``ServingEngine(device="cuda")`` with
+   its defaults (``sparse="auto"``, compiled plan): random absmean weights
+   keep every block live, so the plan names only planes kernels and
+   ``tsar_matmul`` must launch 210 x steps times; 8 requests finish, every
+   logit is finite; a real ``w_gate`` projection at N=20 equals its plain
+   version; a reduced-config step on the GPU agrees with the CPU within 1e-4;
+6. block-sparse engine phase: the same model with a seeded half of every
+   projection's (256, 256) blocks zeroed (block (0, 0) always): pools for
+   all 7 projections, a plan of ``tsar_sparse_padded``, both launch counts
+   equal to what the plan predicts over the run's steps, and greedy tokens
+   equal to engines pinned to ``tsar_mxu`` by a hand-edited plan; the two
+   routes run in turns (sparse, mxu, mxu, sparse) for their step times.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
-package ``repro``.
+Each engine run is a path: every launch count is set to 0 just before it
+and read just after.  The line before the last is ``{"kernels": [...]}``;
+the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
+or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import statistics
@@ -46,6 +63,7 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 
 ARCH = "bitnet-2b-4t"
+KERNEL_SOURCES = ("tsar_matmul", "tsar_sparse")
 L2_BYTES = 50 * 2**20
 REPLAYS = 21
 
@@ -120,6 +138,36 @@ def step_shapes(cfg) -> list[tuple[str, int, int]]:
             ("w_gate", d, f), ("w_up", d, f), ("w_down", f, d)]
 
 
+def sparse_bound(n: int, kp: int, bk: int, bm: int, mb: int, s_steps: int,
+                 live: int) -> tuple[float, str]:
+    """Least time (ms) for one ``tsar_sparse_padded`` call on this data: the
+    larger of the bytes it must move (the live blocks' planes
+    live * 2 * bk/8 * bm, int8 activations N*Kp, f32 a_scale 4N, f32 output
+    4*N*Mp, f32 w_scale 4*Mp, the int32 schedule 4*(2*mb*s_steps + mb)) over
+    HBM bandwidth and its int8 ops 2*N*bk*bm*live over the int8 peak."""
+    mp = mb * bm
+    nbytes = (live * 2 * (bk // 8) * bm + n * kp + 4 * n + 4 * n * mp + 4 * mp
+              + 4 * (2 * mb * s_steps + mb))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * n * bk * bm * live / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def block_sparse_ternary(torch, rng, k: int, m: int, bk: int, bm: int, dev,
+                         dead_strip: bool = False):
+    """Ternary (K, M) int8 on ``dev`` with half of its (bk, bm) blocks dead
+    (numpy ``rng``); ``dead_strip`` kills every block of m-strip 0."""
+    import numpy as np
+
+    kb, mb = -(-k // bk), -(-m // bm)
+    dead = rng.random((kb, mb)) < 0.5
+    if dead_strip:
+        dead[:, 0] = True
+    t = rng.integers(-1, 2, size=(k, m), dtype=np.int8)
+    t *= np.repeat(np.repeat(~dead, bk, 0), bm, 1)[:k, :m].astype(np.int8)
+    return torch.from_numpy(t).to(dev)
+
+
 def kernel_phase(torch, cfg) -> dict:
     from repro_torch.core import ternary
     from repro_torch.kernels import ops, ref
@@ -185,18 +233,240 @@ def kernel_phase(torch, cfg) -> dict:
     return {"rows": rows, "max_abs_err": max_err}
 
 
-def engine_phase(torch, cfg, profile: bool = False) -> dict:
+def sparse_kernel_phase(torch, cfg) -> dict:
     import numpy as np
 
     from repro_torch.core import ternary
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import tsar_matmul as tm
-    from repro_torch.models import model_zoo, transformer
-    from repro_torch.serving import Request, ServingEngine, freeze_params
+    from repro_torch.kernels import tsar_sparse as ts
+    from repro_torch.sparse import format as sformat
 
     dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bk = bm = 256
+    rows = {}
+    max_err = 0.0
+    distinct = sorted({(k, m) for _, k, m in step_shapes(cfg)})
+    for n in (4, 20):
+        for k, m in distinct:
+            t = block_sparse_ternary(torch, rng, k, m, bk, bm, dev)
+            w_scale = torch.rand((m,), generator=gen, device=dev) + 0.01
+            full = sformat.pad_from_ternary(t, w_scale, bk, bm)
+            live, s_max = int(full.counts.sum()), int(full.counts.max())
+            p = sformat.pad_from_ternary(t, w_scale, bk, bm, max_live=live, s_steps=s_max)
+            kb, mb = p.grid
+            a_q = torch.randint(-127, 128, (n, kb * bk), generator=gen, device=dev,
+                                dtype=torch.int8)
+            a_scale = torch.rand((n, 1), generator=gen, device=dev) + 0.01
+            wsc = torch.nn.functional.pad(w_scale, (0, mb * bm - m))
+            sched = (p.kids, p.slots, p.counts, wsc)
+            got = ts.tsar_sparse_padded_matmul_packed(a_q, a_scale, p.sign_pool,
+                                                      p.zero_pool, *sched)
+            want = ts.tsar_sparse_padded_plain(a_q, a_scale, p.sign_pool, p.zero_pool,
+                                               *sched)
+            err = (got - want).abs().max().item()
+            _require(torch.equal(got, want), f"tsar_sparse_padded != plain at N={n} "
+                     f"K={k} M={m} (max err {err})")
+            max_err = max(max_err, err)
+            live_bytes = live * 2 * (bk // 8) * bm
+            copies = max(2, min(256, math.ceil(2 * L2_BYTES / max(live_bytes, 1))))
+            pools = [(p.sign_pool.clone(), p.zero_pool.clone()) for _ in range(copies)]
+            ms = time_graph(torch, [
+                (lambda s=s, z=z: ts.tsar_sparse_padded_matmul_packed(
+                    a_q, a_scale, s, z, *sched)) for s, z in pools],
+                launches_per_replay=2 * copies)
+            plain_ms = time_eager(torch, lambda: ts.tsar_sparse_padded_plain(
+                a_q, a_scale, p.sign_pool, p.zero_pool, *sched))
+            # The dense kernel on the same decoded matrix (planes, all blocks).
+            tw = ternary.pack(t, w_scale)
+            a_k = a_q[:, :k].contiguous()
+            dcopies = max(2, min(256, math.ceil(2 * L2_BYTES / (k * m / 4))))
+            planes = [(tw.sign_plane.clone(), tw.zero_plane.clone()) for _ in range(dcopies)]
+            dense_ms = time_graph(torch, [
+                (lambda s=s, z=z: tm.tsar_matmul_packed(a_k, a_scale, s, z, tw.scale))
+                for s, z in planes], launches_per_replay=2 * dcopies)
+            a32 = torch.zeros((32, k), dtype=torch.int8, device=dev)
+            a32[:n] = a_k
+            lib_copies = max(2, min(64, math.ceil(2 * L2_BYTES / (k * m))))
+            w8 = [t.clone() for _ in range(lib_copies)]
+            library_ms = time_graph(torch, [
+                (lambda w=w: torch._int_mm(a32, w)) for w in w8],
+                launches_per_replay=2 * lib_copies)
+            b_ms, b_by = sparse_bound(n, kb * bk, bk, bm, mb, s_max, live)
+            rows[(n, k, m)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                               "bound_by": b_by, "library_ms": library_ms,
+                               "dense_ms": dense_ms}
+            print(f"tsar_sparse_padded N={n:2d} K={k} M={m} live {live}/{kb * mb} "
+                  f"blocks (s_steps {s_max}): equal | {ms * 1e3:.2f} us (bound "
+                  f"{b_ms * 1e3:.2f} us, {b_by}; {b_ms / ms:.1%} of bound) | dense "
+                  f"tsar_matmul {dense_ms * 1e3:.2f} us | plain {plain_ms * 1e3:.1f} us | "
+                  f"_int_mm int8 {library_ms * 1e3:.2f} us", flush=True)
+            del pools, planes, w8
+    # Ragged shapes, an empty strip and all-zero activations through the
+    # public wrapper, (64, 64) blocks.
+    cases = [(1, 200, 130, False, False), (33, 200, 130, False, False),
+             (4, 200, 130, True, False), (20, 512, 512, False, True)]
+    for n, k, m, dead_strip, zero_act in cases:
+        t = block_sparse_ternary(torch, rng, k, m, 64, 64, dev, dead_strip=dead_strip)
+        p = sformat.pad_from_ternary(t, torch.rand((m,), generator=gen, device=dev) + 0.01,
+                                     64, 64)
+        x = torch.randn((n, k), generator=gen, device=dev)
+        if zero_act:
+            x[::3] = 0.0
+            x[:, 64:128] = 0.0
+        got = ops.tsar_sparse_padded_matmul(x, p)
+        want = ref.padded_sparse_matmul_ref(x, p)
+        _require(got.shape == (n, m), f"sparse output shape {tuple(got.shape)}")
+        _require(not dead_strip or int(p.counts[0]) == 0, "strip 0 is not empty")
+        _require(torch.equal(got, want), f"tsar_sparse_padded != plain at N={n} K={k} "
+                 f"M={m} (empty strip {dead_strip}, zero activations {zero_act})")
+        print(f"tsar_sparse_padded N={n} K={k} M={m} (64, 64) blocks, empty strip "
+              f"{dead_strip}, zero activation rows/k-block {zero_act}: equal", flush=True)
+    return {"rows": rows, "max_abs_err": max_err}
+
+
+def make_requests(request_cls, cfg) -> list:
+    """The smoke traffic: 8 prompts of 16-128 tokens (numpy seed 0), 16 new
+    tokens each."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [request_cls(uid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                    size=int(rng.integers(16, 129)),
+                                                    dtype=np.int32),
+                        max_new_tokens=16) for i in range(8)]
+
+
+def launch_counts() -> dict:
+    from repro_torch.kernels import tsar_matmul as tm
+    from repro_torch.kernels import tsar_sparse as ts
+
+    return {"tsar_matmul": tm.LAUNCHES["tsar_matmul"],
+            "tsar_sparse_padded": ts.LAUNCHES["tsar_sparse_padded"]}
+
+
+def zero_launch_counts() -> None:
+    from repro_torch.kernels import tsar_matmul as tm
+    from repro_torch.kernels import tsar_sparse as ts
+
+    tm.LAUNCHES["tsar_matmul"] = 0
+    ts.LAUNCHES["tsar_sparse_padded"] = 0
+
+
+def predicted_launches(engine, widths: list) -> dict:
+    """Kernel launches the engine's plan predicts over steps of these widths:
+    each projection's planned kernel at the step's bucket, remapped within
+    the sparse family as ``models.layers._packed_linear`` does; a padded
+    sparse kernel on a layer with pools is ``tsar_sparse_padded``, a planes
+    kernel (or no plan entry) ``tsar_matmul``, once per stacked layer."""
+    from repro_torch.plan import registry
+
+    want = {"tsar_matmul": 0, "tsar_sparse_padded": 0}
+    for name, (k, m, _c) in engine.plan.shapes.items():
+        node = engine.params
+        for key in name.split("/"):
+            node = node[key]
+        layer = {key: v[0] for key, v in node.items()}
+        for w in widths:
+            lp = engine.plan.lookup_shape(k, m, w)
+            kern = None if lp is None else lp.kernel
+            if kern in registry.SPARSE_KERNELS:
+                kern = next((kn for kn in registry.SPARSE_KERNELS
+                             if registry.get(kn).supports(layer)), kern)
+            impl = None if kern is None else registry.get(kern)
+            if impl is not None and impl.serve_via_registry and impl.supports(layer):
+                _require(kern == "tsar_sparse_padded",
+                         f"{name} planned {kern}, which is no kernel of this path")
+                want["tsar_sparse_padded"] += node["sign"].shape[0]
+            else:
+                want["tsar_matmul"] += node["sign"].shape[0]
+    return want
+
+
+def run_path(torch, engine, reqs, label: str) -> dict:
+    """Serve ``reqs`` as one path: launch counts zeroed just before, read
+    just after; every step's logits checked finite; every request must
+    finish with 16 tokens in ``[0, vocab)``."""
+    widths, finite = [], []
+    plan_flat, sample = engine.sched.plan_flat, engine._sample
+
+    def recording_plan_flat(*args, **kw):
+        plan = plan_flat(*args, **kw)
+        if hasattr(plan, "width"):
+            widths.append(plan.width)
+        return plan
+
+    def checked_sample(logits, temps):
+        finite.append(bool(torch.isfinite(logits).all().item()))
+        return sample(logits, temps)
+
+    engine.sched.plan_flat, engine._sample = recording_plan_flat, checked_sample
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    engine.run(reqs)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    vocab = engine.cfg.vocab_size
+    _require(all(r.done and len(r.out_tokens) == 16 for r in reqs),
+             f"{label}: not every request finished with 16 tokens")
+    _require(all(0 <= t < vocab for r in reqs for t in r.out_tokens),
+             f"{label}: a token outside [0, vocab)")
+    _require(finite and all(finite), f"{label}: non-finite logits in a step")
+    _require(len(widths) == engine.stats["steps"], f"{label}: unrecorded steps")
+    want = predicted_launches(engine, widths)
+    _require(launches == want, f"{label}: launches {launches}, the plan predicts {want}")
+    decode_steps = engine.metrics.get("decode_steps").value
+    prefill_steps = engine.metrics.get("prefill_steps").value
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    pct = engine.latency_percentiles()
+    print(f"{label}: {len(reqs)} requests, {engine.stats['steps']} steps "
+          f"({prefill_steps} with prefill), {engine.stats['prefill_tokens']} prompt "
+          f"tokens, {n_tok} generated, wall {wall:.3f} s, {n_tok / wall:.1f} generated "
+          f"tok/s | decode {engine.throughput():.1f} tok/s over {decode_steps} "
+          f"pure-decode steps ({engine.stats['decode_s'] / max(1, decode_steps) * 1e3:.2f}"
+          f" ms/step) | prefill steps "
+          f"{engine.stats['prefill_s'] / max(1, prefill_steps) * 1e3:.2f} ms/step | "
+          f"TTFT p50 {pct['ttft_s']['p50'] * 1e3:.1f} ms, TPOT p50 "
+          f"{pct['tpot_s']['p50'] * 1e3:.2f} ms | launches {launches} = plan's prediction",
+          flush=True)
+    return {"launches": launches, "tokens": [r.out_tokens for r in reqs]}
+
+
+def bitlinear_leaves(params) -> dict:
+    """path -> frozen BitLinear dict (stacked over the layers)."""
+    return {f"{b}/{n}": leaf for b, block in params["blocks"].items()
+            for n, leaf in block.items() if isinstance(leaf, dict) and "sign" in leaf}
+
+
+def init_frozen(torch, cfg, kill_blocks: bool):
+    """Full-width random params (generator seed 0) frozen with the engine's
+    defaults.  ``kill_blocks`` first zeroes a seeded half (numpy seed 0) of
+    every BitLinear stack's (256, 256) weight blocks, block (0, 0) always."""
+    import numpy as np
+
+    from repro_torch.models import model_zoo
+    from repro_torch.serving import freeze_params
+
+    dev = torch.device("cuda")
+    gc.collect()             # an earlier phase's engines hold reference cycles
     t0 = time.perf_counter()
     latents = model_zoo.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    if kill_blocks:
+        rng = np.random.default_rng(0)
+        for block in ("attn", "mlp"):
+            for name in sorted(latents["blocks"][block]):
+                leaf = latents["blocks"][block][name]
+                if set(leaf) != {"w"}:
+                    continue
+                n_l, k, m = leaf["w"].shape
+                dead = rng.random((n_l, -(-k // 256), -(-m // 256))) < 0.5
+                dead[:, 0, 0] = True
+                live = torch.from_numpy(~dead).to(dev)
+                for i in range(n_l):
+                    mask = live[i].repeat_interleave(256, 0).repeat_interleave(256, 1)
+                    leaf["w"][i].mul_(mask[:k, :m])
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -208,6 +478,19 @@ def engine_phase(torch, cfg, profile: bool = False) -> dict:
     print(f"engine: init {t_init:.2f} s, freeze {t_freeze:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident after freeze",
           flush=True)
+    return params
+
+
+def engine_phase(torch, cfg, profile: bool = False) -> dict:
+    import numpy as np
+
+    from repro_torch.core import ternary
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer
+    from repro_torch.serving import Request, ServingEngine
+
+    dev = torch.device("cuda")
+    params = init_frozen(torch, cfg, kill_blocks=False)
 
     def make_engine():
         return ServingEngine(cfg, params, max_len=256, batch_slots=4,
@@ -215,48 +498,18 @@ def engine_phase(torch, cfg, profile: bool = False) -> dict:
 
     make_engine().run([Request(uid=-1, prompt=np.arange(8, dtype=np.int32),
                                max_new_tokens=2)])          # warm-up, not measured
-
-    rng = np.random.default_rng(0)
-    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size,
-                                                size=int(rng.integers(16, 129)),
-                                                dtype=np.int32),
-                    max_new_tokens=16) for i in range(8)]
     engine = make_engine()
-    sample = engine._sample
-    checked = []
-
-    def checked_sample(logits, temps):
-        checked.append(bool(torch.isfinite(logits).all().item()))
-        return sample(logits, temps)
-
-    engine._sample = checked_sample
-    tm.LAUNCHES["tsar_matmul"] = 0
-    t0 = time.perf_counter()
-    engine.run(reqs)
-    wall = time.perf_counter() - t0
-    launches = tm.LAUNCHES["tsar_matmul"]
-    steps = engine.stats["steps"]
+    kernels = {lp.kernel for by_n in engine.plan.layers.values() for lp in by_n.values()}
+    _require(kernels <= {"tsar_mxu", "tsar_lut"}, f"dense plan names {kernels}")
+    _require(not any("sp_sign" in leaf for leaf in bitlinear_leaves(params).values()),
+             "absmean weights froze sparse pools")
+    print(f"engine: plan kernels {sorted(kernels)} (planes route), block density mean "
+          f"{engine.stats['block_density_mean']:.3f}", flush=True)
+    run = run_path(torch, engine, make_requests(Request, cfg), "engine")
     per_step = 7 * cfg.n_layers
-
-    _require(all(r.done and len(r.out_tokens) == 16 for r in reqs),
-             "not every request finished with 16 tokens")
-    _require(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens),
-             "a token outside [0, vocab)")
-    _require(checked and all(checked), "non-finite logits in a step")
-    _require(launches == per_step * steps,
-             f"tsar_matmul launched {launches} times, expected {per_step} x {steps}")
-    n_tok = sum(len(r.out_tokens) for r in reqs)
-    pct = engine.latency_percentiles()
-    print(f"engine: {len(reqs)} requests, {steps} steps "
-          f"({engine.metrics.get('prefill_steps').value} with prefill), "
-          f"{engine.stats['prefill_tokens']} prompt tokens, {n_tok} generated, "
-          f"wall {wall:.3f} s, {n_tok / wall:.1f} generated tok/s | "
-          f"decode {engine.throughput():.1f} tok/s over "
-          f"{engine.metrics.get('decode_steps').value} pure-decode steps "
-          f"({engine.stats['decode_s'] / max(1, engine.metrics.get('decode_steps').value) * 1e3:.2f} ms/step) | "
-          f"prefill steps {engine.stats['prefill_s'] / max(1, engine.metrics.get('prefill_steps').value) * 1e3:.2f} ms/step | "
-          f"TTFT p50 {pct['ttft_s']['p50'] * 1e3:.1f} ms, TPOT p50 {pct['tpot_s']['p50'] * 1e3:.2f} ms | "
-          f"tsar_matmul launches {launches} = {per_step} x {steps}", flush=True)
+    _require(run["launches"]["tsar_matmul"] == per_step * engine.stats["steps"],
+             f"tsar_matmul launched {run['launches']['tsar_matmul']} times, expected "
+             f"{per_step} x {engine.stats['steps']}")
 
     # One real full-width projection (layer 0's w_gate) at N=20.
     p = transformer.layer_slice(params["blocks"], 0)["mlp"]["w_gate"]
@@ -269,7 +522,68 @@ def engine_phase(torch, cfg, profile: bool = False) -> dict:
     print("engine: layer-0 w_gate at N=20 equal to its plain version", flush=True)
     if profile:
         profile_decode(torch, cfg, make_engine, Request)
-    return {"launches": launches}
+    return {"launches": run["launches"]["tsar_matmul"]}
+
+
+def sparse_engine_phase(torch, cfg) -> dict:
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.plan import ModelPlan, format_plan
+    from repro_torch.serving import Request, ServingEngine
+
+    dev = torch.device("cuda")
+    params = init_frozen(torch, cfg, kill_blocks=True)
+    leaves = bitlinear_leaves(params)
+    pooled = sorted(path for path, leaf in leaves.items() if "sp_sign" in leaf)
+    _require(len(pooled) == 7, f"pools emitted for {pooled}, not all 7 projections")
+    pool_bytes = sum(leaf[k].numel() for leaf in leaves.values() for k in ("sp_sign", "sp_zero"))
+    plane_bytes = sum(leaf[k].numel() for leaf in leaves.values() for k in ("sign", "zero"))
+
+    def make_engine(plan=None):
+        return ServingEngine(cfg, params, max_len=256, batch_slots=4,
+                             prefill_chunk=16, plan=plan, device=dev)
+
+    make_engine().run([Request(uid=-1, prompt=np.arange(8, dtype=np.int32),
+                               max_new_tokens=2)])          # warm-up, not measured
+    engine = make_engine()
+    print(format_plan(engine.plan, max_rows=12), flush=True)
+    print(f"sparse engine: plan kernel counts at n=4 {engine.plan.kernel_counts(4)}, "
+          f"at n=20 {engine.plan.kernel_counts(20)} | block density mean "
+          f"{engine.stats['block_density_mean']:.3f} | pools {pool_bytes / 2**20:.1f} MiB "
+          f"against planes {plane_bytes / 2**20:.1f} MiB ({pool_bytes / plane_bytes:.1%})",
+          flush=True)
+    run = run_path(torch, engine, make_requests(Request, cfg), "sparse engine")
+    steps = engine.stats["steps"]
+    _require(run["launches"] == {"tsar_matmul": 0,
+                                 "tsar_sparse_padded": 7 * cfg.n_layers * steps},
+             f"sparse engine launches {run['launches']}, expected "
+             f"{7 * cfg.n_layers} x {steps} sparse")
+
+    mxu = ModelPlan(buckets=engine.plan.buckets, shapes=dict(engine.plan.shapes), layers={
+        name: {n: dataclasses.replace(lp, kernel="tsar_mxu") for n, lp in by_n.items()}
+        for name, by_n in engine.plan.layers.items()})
+    # The two routes on the same checkpoint in turns (sparse, mxu, mxu,
+    # sparse): host time drifts within a call, so only turns compare them.
+    decode_ms = {"tsar_sparse_padded": [engine.stats["decode_s"]
+                                        / engine.metrics.get("decode_steps").value * 1e3]}
+    decode_ms["tsar_mxu"] = []
+    for label, plan in (("tsar_mxu", mxu), ("tsar_mxu", mxu),
+                        ("tsar_sparse_padded", None)):
+        eng = make_engine(plan)
+        check = run_path(torch, eng, make_requests(Request, cfg),
+                         f"sparse checkpoint, {label} plan")
+        _require(check["tokens"] == run["tokens"],
+                 f"tokens of the {label} plan differ from the main sparse run's")
+        decode_ms[label].append(eng.stats["decode_s"]
+                                / eng.metrics.get("decode_steps").value * 1e3)
+    print("sparse engine: greedy tokens equal across the tsar_sparse_padded and "
+          "all-tsar_mxu plans | decode ms/step in turns: sparse "
+          f"{decode_ms['tsar_sparse_padded'][0]:.2f}, mxu {decode_ms['tsar_mxu'][0]:.2f}, "
+          f"mxu {decode_ms['tsar_mxu'][1]:.2f}, sparse "
+          f"{decode_ms['tsar_sparse_padded'][1]:.2f}", flush=True)
+    return {"launches": run["launches"]["tsar_sparse_padded"]}
 
 
 def profile_decode(torch, cfg, make_engine, request_cls) -> None:
@@ -375,41 +689,57 @@ def main() -> int:
 
     # 1. card
     print(gpu_line(), flush=True)      # name, power limit, as nvidia-smi prints them
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}", flush=True)
+    props = torch.cuda.get_device_properties(0)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {props.name}: "
+          f"{props.multi_processor_count} SMs, {props.total_memory / 2**30:.1f} GiB",
+          flush=True)
+    from repro_torch.core import hw
+    print(f"planner constants (repro_torch.core.hw, H100 SXM data sheet): bf16 "
+          f"{hw.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s, int8 {hw.PEAK_FLOPS_INT8 / 1e12:.0f} "
+          f"TOP/s, HBM {hw.HBM_BW / 1e12:.2f} TB/s, shared memory {hw.SMEM_BYTES // 1024} "
+          "KiB per SM", flush=True)
 
-    # 2. build
+    # 2. build, one nvcc per source, started together
     t0 = time.perf_counter()
-    _build.load("tsar_matmul")
-    log = _build.build_logs.get("tsar_matmul")
-    print(f"build: tsar_matmul {'compiled' if log is not None else 'cached'} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for line in (log or "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  tsar_matmul: {line.strip()}")
+    _build.build(KERNEL_SOURCES)
+    print(f"build: {', '.join(KERNEL_SOURCES)} in {time.perf_counter() - t0:.1f} s "
+          f"(compiled: {sorted(_build.build_logs) or 'none, cached'})", flush=True)
+    for name in KERNEL_SOURCES:
+        _build.load(name)
+        for line in _build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
 
     cfg = configs.get(ARCH)
-    # 3. kernels
+    # 3-4. kernels
     kern = kernel_phase(torch, cfg)
-    # 4. engine
+    sparse = sparse_kernel_phase(torch, cfg)
+    # 5-6. engines, one path each
     launches = engine_phase(torch, cfg, profile=args.profile)["launches"]
     cpu_agreement(torch, cfg)
+    sparse_launches = sparse_engine_phase(torch, cfg)["launches"]
 
-    # One N=4 pure-decode step: 30 layers x 7 projections.
+    # Per kernel: one N=4 pure-decode step, 30 layers x 7 projections.
     decode = [(4, k, m) for _, k, m in step_shapes(cfg)]
-    tot = {key: sum(kern["rows"][s][key] for s in decode) * cfg.n_layers
-           for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
-    entry = {"name": "tsar_matmul", "route": "cuda",
-             "source": "src/repro_torch/csrc/tsar_matmul.cu",
-             "replaces": "src/repro/kernels/tsar_matmul.py:124",
-             "launches": launches, "max_abs_err": kern["max_abs_err"],
-             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-             "bound_by": ("bytes" if all(kern["rows"][s]["bound_by"] == "bytes"
-                                         for s in decode) else "operations"),
-             "library_ms": tot["library_ms"],
-             "per": f"one N=4 decode step: {7 * cfg.n_layers} launches at the "
-                    "bitnet-2b-4t shapes"}
-    print(json.dumps({"kernels": [entry]}))
+    entries = []
+    for name, source, replaces, res, n_launch in (
+            ("tsar_matmul", "tsar_matmul.cu", "src/repro/kernels/tsar_matmul.py:124",
+             kern, launches),
+            ("tsar_sparse_padded", "tsar_sparse.cu", "src/repro/kernels/tsar_sparse.py:223",
+             sparse, sparse_launches)):
+        tot = {key: sum(res["rows"][sh][key] for sh in decode) * cfg.n_layers
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        entries.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
+            "replaces": replaces, "launches": n_launch, "max_abs_err": res["max_abs_err"],
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": ("bytes" if all(res["rows"][sh]["bound_by"] == "bytes"
+                                        for sh in decode) else "operations"),
+            "library_ms": tot["library_ms"],
+            "per": f"one N=4 decode step: {7 * cfg.n_layers} launches at the "
+                   "bitnet-2b-4t shapes" + (" on pools with half the (256, 256) "
+                                            "blocks dead" if res is sparse else "")})
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

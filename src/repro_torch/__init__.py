@@ -4,9 +4,12 @@ The JAX package ``repro`` is the reference; this package mirrors its layout
 module for module and imports none of it.  Entry points run on the GPU
 (``device="cuda"``) unless the caller passes ``device="cpu"``.
 
-The only hand-written kernel so far is ``csrc/tsar_matmul.cu``, the Hopper
-port of ``repro.kernels.tsar_matmul.tsar_matmul_packed``; it carries every
-packed BitLinear projection of the serving step.
+Two hand-written kernels carry the serving step's packed BitLinear
+projections: ``csrc/tsar_matmul.cu`` (the Hopper port of
+``repro.kernels.tsar_matmul.tsar_matmul_packed``) for 2-bit planes, and
+``csrc/tsar_sparse.cu`` (port of
+``repro.kernels.tsar_sparse.tsar_sparse_padded_matmul_packed``) for layers
+the execution plan sends to their padded block-sparse pools.
 """
 from repro_torch.device import resolve_device
 

@@ -104,6 +104,11 @@ def unpack(tw: TernaryWeights, dtype=torch.int8) -> torch.Tensor:
     return decode_planes(tw.sign_plane, tw.zero_plane, tw.shape[0]).to(dtype)
 
 
+def unpack_dequant(tw: TernaryWeights) -> torch.Tensor:
+    """Unpack and apply the per-channel scale -> approximate fp weights."""
+    return unpack(tw, torch.float32) * tw.scale[None, :].to(torch.float32)
+
+
 def quantize_activations(a: torch.Tensor, eps: float = 1e-6
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-token absmax int8 quantization: ``a`` (..., K) float ->

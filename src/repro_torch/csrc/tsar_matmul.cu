@@ -28,9 +28,10 @@
 //
 // wgmma, TMA and cp.async pipelining are left for a later change.
 
-#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "tsar_common.cuh"
 
 namespace {
 
@@ -41,17 +42,6 @@ constexpr int kThreads = kColGroups * kKGroups;      // 256
 constexpr int kBM = kColGroups * kColsPerThread;     // 64 columns per CTA
 constexpr int kKChunk = 256;                         // k values staged per pass
 constexpr int kRowsPerChunk = kKChunk / 8;           // plane byte rows per pass
-
-// 4-bit value -> one bit in the low bit of each byte (bit i -> byte i).
-__device__ __forceinline__ uint32_t spread4(uint32_t x) {
-  return (x * 0x00204081u) & 0x01010101u;
-}
-
-// Decode one nibble of the zero/sign planes into 4 packed int8 weights in
-// {-1, 0, +1}: nonzero -> 0x01, negative -> 0xFF, zero -> 0x00.
-__device__ __forceinline__ int32_t decode4(uint32_t nz_nib, uint32_t neg_nib) {
-  return static_cast<int32_t>(spread4(nz_nib) | (spread4(neg_nib) * 0xFEu));
-}
 
 template <int BN>
 __global__ void __launch_bounds__(kThreads)
@@ -117,8 +107,8 @@ tsar_matmul_kernel(const int8_t* __restrict__ a_q,      // (N, Kp) int8
         for (int c = 0; c < kColsPerThread; ++c) {
           const uint32_t nzb = (nzw >> (8 * c)) & 0xFFu;
           const uint32_t negb = (negw >> (8 * c)) & 0xFFu;
-          w_lo[c] = decode4(nzb & 0xFu, negb & 0xFu);
-          w_hi[c] = decode4(nzb >> 4, negb >> 4);
+          w_lo[c] = tsar::decode4(nzb & 0xFu, negb & 0xFu);
+          w_hi[c] = tsar::decode4(nzb >> 4, negb >> 4);
         }
 #pragma unroll
         for (int r = 0; r < BN; ++r) {
@@ -158,20 +148,6 @@ tsar_matmul_kernel(const int8_t* __restrict__ a_q,      // (N, Kp) int8
       out[(size_t)row * m + col] =
           __fmul_rn(__fmul_rn(static_cast<float>(v), a_scale[row]), w_scale[col]);
     }
-  }
-}
-
-__global__ void tsar_epilogue_kernel(const int32_t* __restrict__ ws,
-                                     const float* __restrict__ a_scale,
-                                     const float* __restrict__ w_scale,
-                                     float* __restrict__ out, int n, int m) {
-  const size_t total = (size_t)n * m;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const int row = static_cast<int>(i / m);
-    const int col = static_cast<int>(i % m);
-    out[i] = __fmul_rn(__fmul_rn(static_cast<float>(ws[i]), a_scale[row]),
-                       w_scale[col]);
   }
 }
 
@@ -220,12 +196,6 @@ extern "C" int tsar_matmul_packed(const void* a_q, const void* a_scale,
 #undef TSAR_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (splitk > 1) {
-    const size_t total = (size_t)n * m;
-    const int threads = 256;
-    const int blocks = static_cast<int>(
-        std::min<size_t>((total + threads - 1) / threads, 4096));
-    tsar_epilogue_kernel<<<blocks, threads, 0, stream>>>(w, as, wsc, o, n, m);
-  }
+  if (splitk > 1) tsar::launch_epilogue(w, as, wsc, o, n, m, stream);
   return static_cast<int>(cudaGetLastError());
 }

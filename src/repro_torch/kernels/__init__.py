@@ -1,5 +1,7 @@
 """Hand-written Hopper kernels and their wrappers.
 
-Only ``tsar_matmul`` is ported so far; ``tsar_lut_gemv`` and the two sparse
-kernels of the reference package are still to come (see ROADMAP.md).
+Ported: ``tsar_matmul`` and ``tsar_sparse_padded`` (the padded-pool sparse
+kernel).  ``tsar_lut_gemv`` and the compacted ``tsar_sparse_matmul_packed``
+of the reference package come with the ``core/bitlinear`` slice (see
+ROADMAP.md).
 """

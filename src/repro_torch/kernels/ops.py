@@ -1,10 +1,10 @@
-"""Public wrapper for the packed-ternary kernel (port of
-``repro/kernels/ops.py::tsar_matmul``).
+"""Public wrappers for the packed-ternary kernels (port of
+``repro/kernels/ops.py``: ``tsar_matmul`` and ``tsar_sparse_padded_matmul``).
 
-It flattens leading dims, quantizes the activations per token, pads only as
-far as the CUDA kernel needs (K to a multiple of 8, M to a multiple of 4),
-launches, and slices the padding off.  The reference's 8/128 tile alignment
-is a TPU constraint and does not apply here.
+Each flattens leading dims, quantizes the activations per token, pads only
+as far as its CUDA kernel needs, launches, and slices the padding off.  The
+reference's 8/128 tile alignment is a TPU constraint and does not apply
+here.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import ternary
 from repro_torch.kernels import tsar_matmul as _mxu_kernel
+from repro_torch.kernels import tsar_sparse as _sparse_kernel
 
 DATAFLOWS = ("AP", "OP")
 
@@ -54,4 +55,33 @@ def tsar_matmul(x: torch.Tensor, tw: ternary.TernaryWeights, *,
     wsc = _pad_to(tw.scale, 0, 4)
     y = _mxu_kernel.tsar_matmul_packed(a_q.contiguous(), a_scale, sign.contiguous(),
                                        zero.contiguous(), wsc.contiguous())
+    return y[:, :m].reshape(lead + (m,))
+
+
+def tsar_sparse_padded_matmul(x: torch.Tensor, pbst) -> torch.Tensor:
+    """BitLinear matmul through the padded-pool zero-skip kernel.
+
+    ``x`` (..., K) float -> (..., M) float32, with the weights a
+    ``sparse.format.PaddedBlockSparseTernary``: per-token int8 quantization
+    (once), K zero-padded to ``kb * bk``, the kernel walks each m-strip's
+    live blocks only, and the padded M columns are sliced off.
+
+    The reference computes its activation-liveness map (all-zero (bn, bk)
+    activation tiles) here, before the call.  The port's kernel computes it
+    from the activation tile it stages anyway, which saves a separate pass
+    of tensor ops in a host-bound step; the skip drops exact int32 zeros,
+    so where it is computed does not change the result.
+    """
+    k, m = pbst.shape
+    if x.shape[-1] != k:
+        raise ValueError(f"x has {x.shape[-1]} features, weights expect {k}")
+    bk, bm = pbst.block_shape
+    kb, mb = pbst.grid
+    lead = tuple(x.shape[:-1])
+    a_q, a_scale = ternary.quantize_activations(x.reshape(-1, k).to(torch.float32))
+    a_q = _pad_to(a_q, 1, kb * bk)        # padded K channels are zero
+    wsc = _pad_to(pbst.scale, 0, mb * bm)
+    y = _sparse_kernel.tsar_sparse_padded_matmul_packed(
+        a_q.contiguous(), a_scale, pbst.sign_pool, pbst.zero_pool, pbst.kids,
+        pbst.slots, pbst.counts, wsc.contiguous())
     return y[:, :m].reshape(lead + (m,))

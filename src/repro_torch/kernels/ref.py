@@ -1,4 +1,4 @@
-"""Plain-PyTorch oracles for the packed-ternary kernel (port of
+"""Plain-PyTorch oracles for the packed-ternary kernels (port of
 ``repro/kernels/ref.py``)."""
 from __future__ import annotations
 
@@ -29,3 +29,14 @@ def quantized_matmul_ref(a: torch.Tensor, tw: ternary.TernaryWeights) -> torch.T
     t = ternary.unpack(tw, torch.float64)
     acc = a_q.to(torch.float64) @ t
     return acc.to(torch.float32) * a_scale * tw.scale
+
+
+def padded_sparse_matmul_ref(a: torch.Tensor, pbst) -> torch.Tensor:
+    """Oracle for the padded-pool zero-skip path: decode the pool back to a
+    dense ternary matrix through its block map, then run the exact
+    quantized pipeline.  The sparse kernel must match it bit for bit
+    (skipped blocks are exact int32 zeros)."""
+    from repro_torch.sparse import format as sparse_format
+
+    t = sparse_format.padded_to_ternary(pbst)
+    return quantized_matmul_ref(a, ternary.pack(t, pbst.scale))

@@ -65,11 +65,16 @@ def _lib():
     return _PROTO(("tsar_matmul_packed", _build.load("tsar_matmul")))
 
 
+def row_tile(n: int) -> int:
+    """Rows per CTA for ``n`` rows: the smallest compiled tile that covers
+    ``n`` (a multiple of 4), or 32 and a grid over row tiles above that."""
+    return next((b for b in _BN_CHOICES if n <= b), _BN_CHOICES[-1])
+
+
 def launch_config(n: int, kp: int, m: int, sm_count: int) -> tuple[int, int]:
-    """(rows per CTA, K splits) for an (n, kp) x (kp, m) problem: the
-    smallest row tile that covers ``n`` (a multiple of 4; 32 and a grid over
-    row tiles above that), and enough K splits for about two CTAs per SM."""
-    bn = next((b for b in _BN_CHOICES if n <= b), _BN_CHOICES[-1])
+    """(rows per CTA, K splits) for an (n, kp) x (kp, m) problem: the row
+    tile of :func:`row_tile` and enough K splits for about two CTAs per SM."""
+    bn = row_tile(n)
     tiles = -(-m // _COLS_PER_CTA) * -(-n // bn)
     chunks = -(-kp // _K_CHUNK)
     split = min(chunks, max(1, -(-2 * sm_count // tiles)))

@@ -3,7 +3,8 @@
 Params are plain dicts of tensors.  Every projection goes through
 :func:`linear`, which dispatches on the param dict: ``{'sign','zero',
 'scale'}`` = frozen 2-bit T-SAR planes (the serving path, through the
-hand-written kernel), ``{'wd'}`` = plain dense fp.
+hand-written kernels and the active execution plan), ``{'wd'}`` = plain
+dense fp.
 
 Only the flat token-packed attention branch (the serving engine's ``flat``
 policy) is ported; the legacy-decode, chunked and full-sequence branches,
@@ -18,6 +19,9 @@ import torch.nn.functional as F
 
 from repro_torch.core import ternary
 from repro_torch.kernels import ops
+from repro_torch.plan import registry
+from repro_torch.plan import runtime as plan_runtime
+from repro_torch.sparse import format as sparse_format
 
 
 # ---------------------------------------------------------------------------
@@ -37,28 +41,85 @@ def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _packed_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Inference forward from 2-bit planes through ``ops.tsar_matmul``.
+    """Inference forward from 2-bit planes, dispatched through the active
+    execution plan (``repro_torch.plan.runtime``), as the reference's is.
 
-    The reference spells this as an inline decode -> int8 dot that XLA fuses
-    (``serve_via_registry=False`` for ``tsar_mxu``/``tsar_lut``); eager
-    PyTorch cannot fuse that spelling, so the port calls the kernel, whose
-    integer math is identical.
+    The planned kernel for this layer's (k, m) at the step's token count
+    decides the realization, resolved with Python dicts only:
+
+    * a planned sparse kernel is remapped within the sparse family to the
+      format the leaves carry (the compacted ``tsar_sparse`` cannot ride a
+      params tree), and with ``sp_*`` padded-pool leaves it runs
+      ``tsar_sparse_padded`` through the registry: the hand-written sparse
+      kernel, reading the weights from the pool;
+    * planned ``dense`` and ``memory_lut`` run their registry lowerings;
+    * everything else (``tsar_mxu``, ``tsar_lut``, no plan, and a planned
+      sparse kernel on a layer frozen without pools) runs the planes route,
+      ``ops.tsar_matmul``.  That is the reference's semantics
+      (``repro/models/layers.py:88-110``: the same layers take its planes
+      spelling), not a fallback: the integer math is identical.
+
+    The reference spells the planes route as an inline decode -> int8 dot
+    that XLA fuses; eager PyTorch cannot fuse that spelling, so the port
+    calls the hand-written kernel.
     """
     k = x.shape[-1]
     m = p["scale"].shape[-1]
+    n = x.numel() // k
+    lp = plan_runtime.planned(k, m, n)
+    if lp is not None:
+        kern = lp.kernel
+        if kern in registry.SPARSE_KERNELS:
+            kern = next((kn for kn in registry.SPARSE_KERNELS
+                         if registry.get(kn).supports(p)), kern)
+        impl = registry.get(kern)
+        if impl.serve_via_registry and impl.supports(p):
+            return impl.lower(p, x, lp=lp)
     tw = ternary.TernaryWeights(p["sign"], p["zero"], p["scale"], (k, m))
     return ops.tsar_matmul(x, tw)
 
 
-def pack_linear(p: dict) -> dict:
-    """Freeze one 2-D linear layer's latent weights to 2-bit planes (+ the
-    per-channel scale and the measured nonzero-weight density)."""
+def pack_linear(p: dict, lp=None, *, name: str | None = None,
+                sparse: bool = False, block_shape: tuple | None = None,
+                max_live: int | None = None, s_steps: int | None = None) -> dict:
+    """Freeze one 2-D linear layer's latent weights to 2-bit planes, the
+    per-channel scale and the measured nonzero-weight ``density``.
+
+    ``lp`` directs the packing: a ``LayerPlan`` or kernel name, or a whole
+    ``ModelPlan`` resolved through ``name``.  A layer the plan pins to
+    ``dense`` at every bucket keeps fp weights (``{'wd'}``), so the escape
+    hatch costs no decode at serve time; any other plan packs planes.
+
+    ``sparse=True`` also emits the padded block-sparse pool
+    (``sparse.format.pad_from_ternary``) as ``sp_sign sp_zero sp_map sp_kids
+    sp_slots sp_counts`` leaves and the measured live-block fraction
+    ``block_density``; ``max_live``/``s_steps`` bound the pool (the full
+    block grid by default) so stacked layers share one shape.
+    """
     if "w" not in p:
         return p
+    if hasattr(lp, "layers"):        # ModelPlan: dense only if every bucket is
+        by_bucket = lp.layers.get(name, {}) if name else {}
+        kern = "dense" if {e.kernel for e in by_bucket.values()} == {"dense"} else None
+    else:
+        kern = getattr(lp, "kernel", lp)
     t, scale = ternary.absmean_ternarize(p["w"])
+    if kern == "dense":
+        return {"wd": (t * scale[..., None, :]).to(p["w"].dtype)}
     tw = ternary.pack(t, scale)
-    return {"sign": tw.sign_plane, "zero": tw.zero_plane, "scale": tw.scale,
-            "density": ternary.ternary_density(t)}
+    out = {"sign": tw.sign_plane, "zero": tw.zero_plane, "scale": tw.scale,
+           "density": ternary.ternary_density(t)}
+    if sparse:
+        bk, bm = block_shape or sparse_format.DEFAULT_BLOCK_SHAPE
+        pbst = sparse_format.pad_from_ternary(t, scale, bk=bk, bm=bm,
+                                              max_live=max_live, s_steps=s_steps)
+        out.update({
+            "sp_sign": pbst.sign_pool, "sp_zero": pbst.zero_pool,
+            "sp_map": pbst.block_map, "sp_kids": pbst.kids,
+            "sp_slots": pbst.slots, "sp_counts": pbst.counts,
+            "block_density": torch.mean((pbst.occupancy > 0.0).to(torch.float32)),
+        })
+    return out
 
 
 # ---------------------------------------------------------------------------

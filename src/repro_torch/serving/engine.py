@@ -5,27 +5,43 @@ Every engine step is one flat ``(T,)`` model call (the ``flat`` policy):
 the scheduler packs one decode token per running request plus fair-shared
 prefill chunks from several prompts, budgeted purely in tokens
 (``token_budget``), and the step runs gather -> ``flat_step`` -> scatter ->
-sampling.  Weights are frozen to 2-bit T-SAR planes (``packed=True``), so
-every BitLinear projection runs the hand-written ``tsar_matmul`` kernel.
+sampling.  Weights are frozen to 2-bit T-SAR planes (``packed=True``), with
+padded block-sparse pools where a layer stack's blocks die
+(``sparse="auto"``); an execution plan compiled once at init (or supplied)
+picks each projection's kernel, and the step runs inside it: planned
+``tsar_sparse_padded`` on a layer with pools runs the hand-written sparse
+kernel, the rest the ``tsar_matmul`` kernel.
 
-Ported so far: ``policy="flat"`` with packed weights, greedy and
-temperature sampling, and the registry-backed ``stats``.  Execution plans
-(``plan=``), the prefix cache, the ``chunked``/``whole`` policies, latent
-(``packed=False``) serving and the sparse freeze pre-pass are later slices.
+Ported so far: ``policy="flat"`` with packed weights, plans, the sparse
+freeze pre-pass, greedy and temperature sampling, and the registry-backed
+``stats``.  The prefix cache, the ``chunked``/``whole`` policies and latent
+(``packed=False``) serving are later slices.
 """
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from repro_torch.core import ternary
 from repro_torch.device import resolve_device
 from repro_torch.models import layers, model_zoo
 from repro_torch.obs import NULL_TRACER, MetricsRegistry, StatsView
+from repro_torch.plan import BatchProfile, ModelPlan, compile_plan
+from repro_torch.plan import runtime as plan_runtime
 from repro_torch.serving.kv_cache import PagedKVCache
 from repro_torch.serving.scheduler import ChunkedScheduler, Preempt, SlotState
+from repro_torch.sparse import format as sparse_format
+from repro_torch.sparse import stats as sparse_stats
+
+# Freeze emits padded pools only for stacks whose mean live-block fraction
+# is below this (the reference's ``core.bitlinear.SPARSE_SIDE_CAR_THRESHOLD``):
+# a notch above the ~0.9 dispatch break-even, so borderline layers keep the
+# option while clearly dense stacks carry no dead pool bytes.
+SPARSE_SIDE_CAR_THRESHOLD = 0.95
 
 
 @dataclass
@@ -65,22 +81,81 @@ class Request:
         return (self.t_done - self.t_first) / (len(self.out_tokens) - 1)
 
 
-def freeze_params(params) -> dict:
+def _stack_slices(w: torch.Tensor) -> list[torch.Tensor]:
+    """The 2-D (K, M) slices of a (possibly stacked) weight, in order."""
+    return list(w.reshape((-1,) + tuple(w.shape[-2:])))
+
+
+def _measure_stack(w: torch.Tensor, block_shape: tuple) -> tuple[int, int, float]:
+    """Occupancy of one (possibly stacked) latent weight, on its device:
+    (stack-wide max live blocks, stack-wide max live blocks in a strip,
+    mean live-block fraction over the slices).  It ternarizes each slice
+    (``pack_linear`` ternarizes again: a freeze-time double cost the
+    reference accepts too)."""
+    bk, bm = block_shape
+    max_live = s_steps = 0
+    bds = []
+    for w2 in _stack_slices(w):
+        live = sparse_stats.block_occupancy(ternary.absmean_ternarize(w2)[0], bk, bm) > 0
+        max_live = max(max_live, int(live.sum()))
+        s_steps = max(s_steps, int(live.sum(dim=0).max()))
+        bds.append(int(live.sum()) / live.numel())
+    return max_live, s_steps, float(np.mean(bds)) if bds else 1.0
+
+
+def _sparse_prepass(w: torch.Tensor, block_shape: tuple, max_live: int | None = None,
+                    s_steps: int | None = None) -> dict | None:
+    """Sizing pass for ``sparse="auto"``: the ``pack_linear`` kwargs that
+    emit a padded pool sized to the stack-wide maxima, when the mean
+    live-block fraction over the stack is below
+    ``SPARSE_SIDE_CAR_THRESHOLD``; None when the stack is too dense.
+    Caller-supplied ``max_live``/``s_steps`` act as floors (uniform ``sp_*``
+    shapes across re-freezes for a saved plan)."""
+    measured_live, measured_steps, mean_bd = _measure_stack(w, block_shape)
+    if mean_bd >= SPARSE_SIDE_CAR_THRESHOLD:
+        return None
+    return {"sparse": True, "block_shape": block_shape,
+            "max_live": max(measured_live, max_live or 0, 1),
+            "s_steps": max(measured_steps, s_steps or 0, 1)}
+
+
+def freeze_params(params, *, sparse: str | bool = "auto",
+                  block_shape: tuple | None = None, max_live: int | None = None,
+                  s_steps: int | None = None) -> dict:
     """Pack every BitLinear latent weight ``{'w'}`` to 2-bit planes.
 
     Stacked (per-layer) weights are packed one ``L`` slice at a time, which
     bounds the transient memory to one layer; dense fp leaves and already
-    frozen dicts pass through.  Only planes are emitted, as the reference's
-    default ``sparse="auto"`` does for absmean weights (every block is live,
-    so it emits no padded pools); the sparse pools come with the
-    sparse-kernel slice.
+    frozen dicts pass through.
+
+    ``sparse`` controls the padded-pool leaves (``sp_*``,
+    ``sparse.format.PaddedBlockSparseTernary``), stacked with one shape
+    across the ``L`` axis:
+
+    * ``"auto"`` (default): a pre-pass measures each stack's block occupancy
+      and emits pools only where the mean live-block fraction is below
+      ``SPARSE_SIDE_CAR_THRESHOLD``, sized to the measured stack-wide
+      ``max_live``/``s_steps`` (caller values act as floors);
+    * ``True``: always emit pools, padded to ``max_live``/``s_steps`` (the
+      full grid and K/bk when None); bounds that do not hold raise;
+    * ``False``: planes only.
     """
+    if sparse not in (True, False, "auto"):
+        raise ValueError(f"freeze_params: sparse={sparse!r} must be True, False, "
+                         "or 'auto'")
+    bshape = tuple(block_shape or sparse_format.DEFAULT_BLOCK_SHAPE)
 
     def freeze_leafdict(w: torch.Tensor) -> dict:
-        if w.ndim == 2:
-            return layers.pack_linear({"w": w})
-        slices = [freeze_leafdict(w[i]) for i in range(w.shape[0])]
-        return {k: torch.stack([s[k] for s in slices]) for k in slices[0]}
+        kw = {}
+        if sparse is True:
+            kw = {"sparse": True, "block_shape": bshape, "max_live": max_live,
+                  "s_steps": s_steps}
+        elif sparse == "auto":
+            kw = _sparse_prepass(w, bshape, max_live=max_live, s_steps=s_steps) or {}
+        slices = [layers.pack_linear({"w": w2}, **kw) for w2 in _stack_slices(w)]
+        lead = tuple(w.shape[:-2])
+        return {k: torch.stack([s[k] for s in slices]).reshape(
+                    lead + tuple(slices[0][k].shape)) for k in slices[0]}
 
     def walk(node):
         if isinstance(node, dict):
@@ -90,6 +165,38 @@ def freeze_params(params) -> dict:
         return node
 
     return walk(params)
+
+
+def density_telemetry(params) -> dict | None:
+    """Per-layer weight-density profile of a packed params tree:
+    ``sparse.stats.summarize`` plus the full profile, or None when the tree
+    has no BitLinear leaves."""
+    profile = sparse_stats.profile_params(params)
+    if not profile:
+        return None
+    out = sparse_stats.summarize(profile)
+    out["profile"] = profile
+    return out
+
+
+def packed_fraction(params) -> float:
+    """Diagnostic: fraction of param bytes in 2-bit packed form (each plane
+    byte counted as the 8 weights it stands for)."""
+    packed = total = 0
+
+    def walk(node, names):
+        nonlocal packed, total
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, names + (k,))
+            return
+        nb = node.numel() * node.element_size()
+        total += nb
+        if any(n in ("sign", "zero") for n in names):
+            packed += nb * 8
+
+    walk(params, ())
+    return packed / max(total, 1)
 
 
 def _flat_call(cfg, params, pools, table, tokens, slot, pos, emit_row):
@@ -110,12 +217,12 @@ class ServingEngine:
                  packed: bool = True, cache_dtype=torch.float32, seed: int = 0,
                  prefill_chunk: int = 16, block_size: int = 16,
                  kv_blocks: int | None = None, policy: str | None = None,
-                 token_budget: int | None = None, plan=None,
+                 token_budget: int | None = None, profile_density: bool = True,
+                 plan: ModelPlan | None = None, sparse: str | bool = "auto",
+                 sparse_block: tuple | None = None,
                  prefix_cache: bool | int = False, tracer=None, device="cuda"):
         if not packed:
             raise _later_slice("latent (packed=False) serving", "training")
-        if plan is not None:
-            raise _later_slice("plan=", "plan/ (registry, compile_plan, runtime)")
         if prefix_cache:
             raise _later_slice("prefix_cache=", "serving/prefix_cache.py")
         if policy not in (None, "flat"):
@@ -124,7 +231,7 @@ class ServingEngine:
             raise _later_slice(f"family {cfg.family!r}", "other model families")
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = freeze_params(params)
+        self.params = freeze_params(params, sparse=sparse, block_shape=sparse_block)
         self.max_len = max_len
         self.slots = batch_slots
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -211,6 +318,40 @@ class ServingEngine:
             "max_step_tokens": _peak(self._g_step_tokens),
         })
         self.stats.bind("rejections", *_cv(self._c_rejections))
+
+        # Density telemetry, measured once at init from the packed planes on
+        # their device (profile_density=False skips it).
+        self.density = density_telemetry(self.params) if profile_density else None
+        if self.density is not None:
+            self.stats["weight_density_mean"] = self.density["density_mean"]
+            self.stats["block_density_mean"] = self.density["block_density_mean"]
+
+        # Execution plan, compiled (or supplied) once here; every step runs
+        # inside plan_runtime.activate(self.plan), and no select_kernel call
+        # happens after this constructor returns.
+        supplied = plan is not None
+        if plan is None:
+            plan = compile_plan(self.params, BatchProfile(
+                decode_ns=(1, batch_slots),
+                prefill_ns=(prefill_chunk, batch_slots * (prefill_chunk + 1),
+                            token_budget)))
+        self.plan = plan
+        self.stats["plan_layers"] = len(plan.layers)
+        # Shapes shared by layers with conflicting plans take the default
+        # realization (the shape-keyed lookup cannot tell them apart).
+        self.stats["plan_shape_conflicts"] = len(plan.shape_conflicts())
+        if supplied:
+            # A plan saved for another config resolves nothing and would
+            # serve every layer unplanned while telemetry claims otherwise.
+            matched, total = plan.coverage(self.params)
+            self.stats["plan_matched_layers"] = matched
+            if matched < total:
+                warnings.warn(
+                    f"repro_torch.serving.ServingEngine: supplied plan resolves "
+                    f"only {matched}/{total} BitLinear layers of this model; "
+                    "unmatched layers run the default realization (was the "
+                    "plan compiled for a different config?)",
+                    UserWarning, stacklevel=2)
 
     # -- request management --------------------------------------------------
 
@@ -308,10 +449,11 @@ class ServingEngine:
         table = self.kv.table_view(plan.view_blocks)
         step_no = self._c_steps.value
         t0 = time.perf_counter()
-        sel, self.kv.pools = _flat_call(
-            self.cfg, self.params, self.kv.pools, table,
-            self._to_device(plan.tokens), self._to_device(plan.slot),
-            self._to_device(plan.pos), self._to_device(plan.emit_row))
+        with plan_runtime.activate(self.plan):
+            sel, self.kv.pools = _flat_call(
+                self.cfg, self.params, self.kv.pools, table,
+                self._to_device(plan.tokens), self._to_device(plan.slot),
+                self._to_device(plan.pos), self._to_device(plan.emit_row))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
@@ -338,7 +480,7 @@ class ServingEngine:
                     decode_tokens=plan.decode_tokens,
                     kv_blocks=int(self.kv.blocks_in_use),
                     active_slots=sum(1 for s in self._slots if s is not None),
-                    kernel=None)
+                    kernel=self.plan.dominant_kernel(plan.width))
 
         toks = None
         if plan.emit.any():

@@ -10,6 +10,7 @@ projection as the planes decode -> int8 dot: a guard asserts that its plan
 names only ``tsar_mxu`` and that it froze no ``sp_*`` pool leaves.
 """
 import ast
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -24,6 +25,7 @@ from repro.models import model_zoo as jzoo
 from repro.serving import Request as JRequest
 from repro.serving import ServingEngine as JServingEngine
 from repro_torch import bridge
+from repro_torch.plan import ModelPlan, registry, runtime
 from repro_torch.serving import Request, ServingEngine
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -130,12 +132,36 @@ def test_cuda_device_raises_without_gpu(ref_latent):
         ServingEngine(cfg, {}, device="cuda")
 
 
-@pytest.mark.parametrize("kw", [dict(plan=object()), dict(prefix_cache=True),
-                                dict(policy="chunked"), dict(packed=False)])
+@pytest.mark.parametrize("kw", [dict(prefix_cache=True), dict(policy="chunked"),
+                                dict(packed=False)])
 def test_unported_options_raise(kw, ref_latent):
     cfg, _ = ref_latent
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ServingEngine(cfg, {}, device="cpu", **kw)
+
+
+def test_plan_is_accepted_and_used(ref_latent, monkeypatch):
+    """A supplied plan becomes the engine's plan, is active inside every
+    step, and decides the kernel: pinning every layer to ``dense`` routes
+    every projection through the registry's dense lowering."""
+    cfg, latent = ref_latent
+    frozen = JServingEngine(cfg, latent, packed=True, max_len=32, batch_slots=2).params
+    params = bridge.params_from_reference(jax.tree.map(np.asarray, frozen), device="cpu")
+    base = ServingEngine(cfg, params, max_len=32, batch_slots=2, device="cpu")
+    dense = ModelPlan(buckets=base.plan.buckets, shapes=dict(base.plan.shapes), layers={
+        name: {n: dataclasses.replace(lp, kernel="dense") for n, lp in by_n.items()}
+        for name, by_n in base.plan.layers.items()})
+    seen = []
+    lower = registry.get("dense").lower
+    monkeypatch.setattr(registry.get("dense"), "lower",
+                        lambda *a, **kw: seen.append(runtime.current()) or lower(*a, **kw))
+    eng = ServingEngine(cfg, params, max_len=32, batch_slots=2, plan=dense, device="cpu")
+    assert eng.plan is dense and eng.stats["plan_matched_layers"] == 7
+    reqs = eng.run(_requests(Request, [5, 7], 3, 3))
+    assert all(r.done for r in reqs)
+    assert len(seen) == 7 * cfg.n_layers * eng.stats["steps"]
+    assert all(p is dense for p in seen)
+    assert runtime.current() is None
 
 
 def _port_files():

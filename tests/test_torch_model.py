@@ -60,11 +60,18 @@ def test_bridge_carries_frozen_tree_leaf_for_leaf(ref_model):
         assert got[k].numpy().tobytes() == ref[k].tobytes()
 
 
-def test_bridge_rejects_sparse_pool_leaves():
-    tree = {"w_up": {"sign": np.zeros((1, 2), np.uint8), "zero": np.zeros((1, 2), np.uint8),
-                     "scale": np.ones(2, np.float32), "sp_sign": np.zeros(1, np.uint8)}}
-    with pytest.raises(NotImplementedError):
-        bridge.params_from_reference(tree, device="cpu")
+def test_bridge_carries_sparse_pool_leaves():
+    """Padded-pool leaves (``freeze_params(sparse=...)``) come across byte for
+    byte with their stacked ``L`` axis."""
+    latent = {"w_up": {"w": jax.random.normal(jax.random.PRNGKey(3), (2, 128, 128))}}
+    frozen = _np_tree(jfreeze(latent, sparse=True, block_shape=(64, 64)))
+    got = bridge.params_from_reference(frozen, device="cpu")["w_up"]
+    assert set(got) == {"sign", "zero", "scale", "density", "sp_sign", "sp_zero",
+                        "sp_map", "sp_kids", "sp_slots", "sp_counts", "block_density"}
+    for name, arr in frozen["w_up"].items():
+        assert got[name].shape[0] == 2, name
+        assert got[name].numpy().dtype == arr.dtype, name
+        assert got[name].numpy().tobytes() == arr.tobytes(), name
 
 
 def test_bridge_defaults_to_cuda_and_raises_without_gpu():
