@@ -8,9 +8,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 1. the card's name and power limit (``nvidia-smi``), its properties beside
    the planner's H100 constants (``repro_torch.core.hw``);
-2. build both CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, started together) and print the build time and ``nvcc``'s
-   register report;
+2. build the three CUDA libraries from ``src/repro_torch/csrc`` (one
+   ``nvcc`` per source, started together) and print the build time and
+   ``nvcc``'s register report;
 3. ``tsar_matmul`` kernel phase: the kernel against its plain PyTorch
    version at the eight (N, K, M) shapes of the ``bitnet-2b-4t`` serving step
    and at ragged shapes, required ``torch.equal``; CUDA-event times (median
@@ -23,23 +23,44 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``torch.equal`` to the plain version; times beside the bound of the live
    blocks, the dense ``tsar_matmul`` on the same decoded matrix and
    ``torch._int_mm``;
-5. dense engine phase: full-width ``bitnet-2b-4t`` (30 layers, random
+5. ``tsar_lut`` kernel phase: the four projection shapes x N in {1, 4, 20},
+   c = 4, float32 activations, indices from ``pack_indices`` (numpy seed
+   0), within rtol 1e-4 / atol 2e-3 of the plain version and of the dense
+   product; c = 2 and ragged N/K/M; times beside the bound, the plain version
+   and one float32 ``torch.matmul`` (TF32 off) on the decoded ``t * scale``;
+6. ``tsar_sparse`` (compacted pool) kernel phase: the four projection
+   shapes x N in {1, 4, 20} on ``from_ternary`` pools with half of the
+   (256, 256) blocks dead, required
+   ``torch.equal``; an all-dead matrix, an empty strip and ragged N/K/M;
+   times beside the live-block bound, the padded kernel on the same matrix
+   and ``torch._int_mm``;
+7. dense engine phase: full-width ``bitnet-2b-4t`` (30 layers, random
    weights from seed 0) served through ``ServingEngine(device="cuda")`` with
    its defaults (``sparse="auto"``, compiled plan): random absmean weights
    keep every block live, so the plan names only planes kernels and
    ``tsar_matmul`` must launch 210 x steps times; 8 requests finish, every
    logit is finite; a real ``w_gate`` projection at N=20 equals its plain
    version; a reduced-config step on the GPU agrees with the CPU within 1e-4;
-6. block-sparse engine phase: the same model with a seeded half of every
+8. block-sparse engine phase: the same model with a seeded half of every
    projection's (256, 256) blocks zeroed (block (0, 0) always): pools for
    all 7 projections, a plan of ``tsar_sparse_padded``, both launch counts
    equal to what the plan predicts over the run's steps, and greedy tokens
    equal to engines pinned to ``tsar_mxu`` by a hand-edited plan; the two
-   routes run in turns (sparse, mxu, mxu, sparse) for their step times.
+   routes run in turns (sparse, mxu, mxu, sparse) for their step times;
+9. bitlinear path phase: the seven projections of one full-width layer
+   (numpy seed 0), frozen on the card by ``core.bitlinear.freeze`` dense and
+   with a seeded half of their (256, 256) latent blocks zeroed (block (0, 0)
+   always), ``compile_plan`` over the 14 ``FrozenBitLinear``s, then
+   ``apply_frozen`` at N in {1, 4, 20} under auto, the compiled
+   ``LayerPlan``s and each of the six registry names: launch counts equal
+   what the resolved kernels predict, the int8 family equal to the quantized
+   oracle, the float family within rtol 1e-4 / atol 2e-3 of the dense
+   product, bf16 in gives bf16 out.
 
-Each engine run is a path: every launch count is set to 0 just before it
-and read just after.  The line before the last is ``{"kernels": [...]}``;
-the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
+Each engine run and each bitlinear run is a path: every launch count is set
+to 0 just before it and read just after.  The card's name and power limit
+are printed again before the ``{"kernels": [...]}`` line, which comes
+before the last; the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
 or of the JAX package ``repro``.
 """
 from __future__ import annotations
@@ -61,9 +82,15 @@ SRC = ROOT / "src"
 # tensor-core ops/s.  A card set below 700 W runs below them.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
 
 ARCH = "bitnet-2b-4t"
-KERNEL_SOURCES = ("tsar_matmul", "tsar_sparse")
+KERNEL_SOURCES = ("tsar_matmul", "tsar_sparse", "tsar_lut")
+# Registry kernel -> the launch counter of its hand-written kernel
+# (``memory_lut`` and ``dense`` are plain PyTorch and launch none).
+COUNTER_OF = {"tsar_mxu": "tsar_matmul", "tsar_lut": "tsar_lut",
+              "tsar_sparse": "tsar_sparse", "tsar_sparse_padded": "tsar_sparse_padded"}
+COUNTERS = ("tsar_matmul", "tsar_sparse_padded", "tsar_lut", "tsar_sparse")
 L2_BYTES = 50 * 2**20
 REPLAYS = 21
 
@@ -150,6 +177,20 @@ def sparse_bound(n: int, kp: int, bk: int, bm: int, mb: int, s_steps: int,
               + 4 * (2 * mb * s_steps + mb))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * n * bk * bm * live / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def lut_bound(n: int, k: int, m: int, c: int) -> tuple[float, str]:
+    """Least time (ms) for one ``tsar_lut`` call: the larger of the bytes it
+    must move (uint8 indices 2*(K/c)*M, f32 activations 4*N*K, f32 output
+    4*N*M, f32 w_scale 4*M) over HBM bandwidth and its float32 operations
+    over the float32 peak outside the tensor cores: the LUT build
+    N*(K/c)*2^c adds, then per (row, block, column) one FMA and one add
+    (``acc += 2*S[ip] + S[iz]``), 3*N*(K/c)*M."""
+    blocks = -(-k // c)
+    nbytes = 2 * blocks * m + 4 * n * k + 4 * n * m + 4 * m
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (n * blocks * (1 << c) + 3 * n * blocks * m) / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -327,6 +368,283 @@ def sparse_kernel_phase(torch, cfg) -> dict:
     return {"rows": rows, "max_abs_err": max_err}
 
 
+def lut_kernel_phase(torch, cfg) -> dict:
+    import numpy as np
+
+    from repro_torch.core import ternary
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import tsar_lut as tl
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    c = 4
+    rows = {}
+    max_err = 0.0
+
+    def problem(n, k, m):
+        x = torch.from_numpy(rng.standard_normal((n, k), dtype=np.float32)).to(dev)
+        t = torch.from_numpy(rng.integers(-1, 2, size=(k, m), dtype=np.int8)).to(dev)
+        w_scale = torch.from_numpy(rng.uniform(0.25, 2.0, m).astype(np.float32)).to(dev)
+        return x, t, w_scale
+
+    def check(got, x, t, w_scale, ip, iz, c, what):
+        plain = tl.tsar_lut_plain(x, ip, iz, w_scale, c)
+        dense = ref.ternary_matmul_ref(x, t, w_scale)
+        err = (got - plain).abs().max().item()
+        _require(bool(torch.isfinite(got).all()), f"tsar_lut {what}: non-finite output")
+        _require(torch.allclose(got, plain, rtol=1e-4, atol=2e-3),
+                 f"tsar_lut != plain at {what} (max err {err})")
+        _require(torch.allclose(got, dense, rtol=1e-4, atol=2e-3),
+                 f"tsar_lut != dense product at {what} "
+                 f"(max err {(got - dense).abs().max().item()})")
+        return err
+
+    distinct = sorted({(k, m) for _, k, m in step_shapes(cfg)})
+    for k, m in distinct:
+        _, t, w_scale = problem(1, k, m)
+        ip, iz = ternary.pack_indices(t, c)
+        copies = max(2, min(256, math.ceil(2 * L2_BYTES / (2 * ip.numel()))))
+        idx = [(ip.clone(), iz.clone()) for _ in range(copies)]
+        # Library yardstick: one float32 torch.matmul (TF32 off) on the
+        # matrix t * scale decoded ahead of time (16x the index bytes).
+        w = t.to(torch.float32) * w_scale
+        lib_copies = max(2, min(64, math.ceil(2 * L2_BYTES / (4 * k * m))))
+        wl = [w.clone() for _ in range(lib_copies)]
+        for n in (1, 4, 20):
+            x = torch.from_numpy(rng.standard_normal((n, k), dtype=np.float32)).to(dev)
+            got = tl.tsar_lut_gemv(x, ip, iz, w_scale, c=c)
+            err = check(got, x, t, w_scale, ip, iz, c, f"N={n} K={k} M={m} c={c}")
+            max_err = max(max_err, err)
+            ms = time_graph(torch, [
+                (lambda p=p, z=z: tl.tsar_lut_gemv(x, p, z, w_scale, c=c)) for p, z in idx],
+                launches_per_replay=2 * copies)
+            plain_ms = time_eager(torch, lambda: tl.tsar_lut_plain(x, ip, iz, w_scale, c))
+            library_ms = time_graph(torch, [(lambda w=w: torch.matmul(x, w)) for w in wl],
+                                    launches_per_replay=2 * lib_copies)
+            b_ms, b_by = lut_bound(n, k, m, c)
+            rows[(n, k, m)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                               "bound_by": b_by, "library_ms": library_ms}
+            print(f"tsar_lut N={n:2d} K={k} M={m} c={c}: within rtol 1e-4/atol 2e-3 "
+                  f"(max err {err:.3g}) | {ms * 1e3:.2f} us (bound {b_ms * 1e3:.2f} us, "
+                  f"{b_by}; {b_ms / ms:.1%} of bound) | plain {plain_ms * 1e3:.1f} us | "
+                  f"f32 torch.matmul {library_ms * 1e3:.2f} us", flush=True)
+        del idx, wl, w
+    # c = 2 at a full-width shape and ragged N/K/M through the public wrapper
+    # (zero-pads K to blocks * c and M to a multiple of 4).
+    for n, k, m, cc in [(4, 2560, 2560, 2), (1, 132, 70, 4), (33, 132, 70, 4),
+                        (1, 132, 70, 2), (33, 132, 70, 2)]:
+        x, t, w_scale = problem(n, k, m)
+        ip, iz = ternary.pack_indices(t, cc)
+        got = ops.tsar_lut_gemv(x, ip, iz, w_scale, c=cc)
+        _require(got.shape == (n, m), f"tsar_lut output shape {tuple(got.shape)}")
+        err = check(got, x, t, w_scale, ip, iz, cc, f"N={n} K={k} M={m} c={cc}")
+        max_err = max(max_err, err)
+        print(f"tsar_lut N={n} K={k} M={m} c={cc}: within rtol 1e-4/atol 2e-3 "
+              f"(max err {err:.3g})", flush=True)
+    return {"rows": rows, "max_abs_err": max_err}
+
+
+def compact_kernel_phase(torch, cfg) -> dict:
+    import numpy as np
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import tsar_sparse as ts
+    from repro_torch.sparse import format as sformat
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    bk = bm = 256
+    rows = {}
+    max_err = 0.0
+    distinct = sorted({(k, m) for _, k, m in step_shapes(cfg)})
+    for n in (1, 4, 20):
+        for k, m in distinct:
+            t = block_sparse_ternary(torch, rng, k, m, bk, bm, dev)
+            w_scale = torch.rand((m,), generator=gen, device=dev) + 0.01
+            p = sformat.from_ternary(t, w_scale, bk, bm)
+            kb, mb = p.grid
+            a_q = torch.randint(-127, 128, (n, kb * bk), generator=gen, device=dev,
+                                dtype=torch.int8)
+            a_scale = torch.rand((n, 1), generator=gen, device=dev) + 0.01
+            wsc = torch.nn.functional.pad(w_scale, (0, mb * bm - m))
+            sched = (p.kids, p.slots, p.counts, wsc)
+            got = ts.tsar_sparse_matmul_packed(a_q, a_scale, p.sign_pool, p.zero_pool,
+                                               *sched)
+            want = ts.tsar_sparse_compact_plain(a_q, a_scale, p.sign_pool, p.zero_pool,
+                                                *sched)
+            err = (got - want).abs().max().item()
+            _require(torch.equal(got, want), f"tsar_sparse != plain at N={n} K={k} M={m} "
+                     f"(max err {err})")
+            max_err = max(max_err, err)
+            live = p.n_live
+            copies = max(2, min(256, math.ceil(2 * L2_BYTES / max(live * 2 * (bk // 8) * bm, 1))))
+            pools = [(p.sign_pool.clone(), p.zero_pool.clone()) for _ in range(copies)]
+            ms = time_graph(torch, [
+                (lambda s=s, z=z: ts.tsar_sparse_matmul_packed(a_q, a_scale, s, z, *sched))
+                for s, z in pools], launches_per_replay=2 * copies)
+            plain_ms = time_eager(torch, lambda: ts.tsar_sparse_compact_plain(
+                a_q, a_scale, p.sign_pool, p.zero_pool, *sched))
+            # The padded kernel on the same matrix (its tight pool).
+            q = sformat.pad_pool(p)
+            qsched = (q.kids, q.slots, q.counts, wsc)
+            qpools = [(q.sign_pool.clone(), q.zero_pool.clone()) for _ in range(copies)]
+            padded_ms = time_graph(torch, [
+                (lambda s=s, z=z: ts.tsar_sparse_padded_matmul_packed(
+                    a_q, a_scale, s, z, *qsched)) for s, z in qpools],
+                launches_per_replay=2 * copies)
+            a32 = torch.zeros((32, k), dtype=torch.int8, device=dev)
+            a32[:n] = a_q[:, :k]
+            lib_copies = max(2, min(64, math.ceil(2 * L2_BYTES / (k * m))))
+            w8 = [t.clone() for _ in range(lib_copies)]
+            library_ms = time_graph(torch, [
+                (lambda w=w: torch._int_mm(a32, w)) for w in w8],
+                launches_per_replay=2 * lib_copies)
+            b_ms, b_by = sparse_bound(n, kb * bk, bk, bm, mb, max(p.s_max, 1), live)
+            rows[(n, k, m)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                               "bound_by": b_by, "library_ms": library_ms,
+                               "padded_ms": padded_ms}
+            print(f"tsar_sparse N={n:2d} K={k} M={m} live {live}/{kb * mb} blocks "
+                  f"(s_max {p.s_max}): equal | {ms * 1e3:.2f} us (bound {b_ms * 1e3:.2f} us, "
+                  f"{b_by}; {b_ms / ms:.1%} of bound) | padded kernel {padded_ms * 1e3:.2f} us"
+                  f" | plain {plain_ms * 1e3:.1f} us | _int_mm int8 "
+                  f"{library_ms * 1e3:.2f} us", flush=True)
+            del pools, qpools, w8
+    # An all-dead matrix (one pad slot, every count 0), an empty strip and
+    # ragged N/K/M through the public wrapper, (64, 64) blocks.
+    cases = [(4, 512, 256, "all dead"), (4, 200, 130, "empty strip"),
+             (1, 200, 130, "ragged"), (33, 200, 130, "ragged")]
+    for n, k, m, what in cases:
+        if what == "all dead":
+            t = torch.zeros((k, m), dtype=torch.int8, device=dev)
+        else:
+            t = block_sparse_ternary(torch, rng, k, m, 64, 64, dev,
+                                     dead_strip=what == "empty strip")
+        p = sformat.from_ternary(t, torch.rand((m,), generator=gen, device=dev) + 0.01,
+                                 64, 64)
+        x = torch.randn((n, k), generator=gen, device=dev)
+        got = ops.tsar_sparse_matmul(x, p)
+        want = ref.block_sparse_matmul_ref(x, p)
+        _require(got.shape == (n, m), f"tsar_sparse output shape {tuple(got.shape)}")
+        _require(what != "all dead" or (p.n_live == 0 and p.sign_pool.shape[0] == 1
+                                        and not bool(got.any())), "all-dead pool")
+        _require(what != "empty strip" or int(p.counts[0]) == 0, "strip 0 is not empty")
+        _require(torch.equal(got, want), f"tsar_sparse != plain at N={n} K={k} M={m} ({what})")
+        print(f"tsar_sparse N={n} K={k} M={m} (64, 64) blocks, {what} (live {p.n_live}, "
+              f"s_max {p.s_max}): equal", flush=True)
+    return {"rows": rows, "max_abs_err": max_err}
+
+
+def bitlinear_phase(torch, cfg) -> dict:
+    """The layer-level path: ``freeze`` -> ``compile_plan`` ->
+    ``apply_frozen`` over the seven projections of one full-width layer,
+    frozen dense and with half of the (256, 256) latent blocks zeroed."""
+    import numpy as np
+
+    from repro_torch.core import bitlinear, ternary
+    from repro_torch.kernels import ref
+    from repro_torch.plan import BatchProfile, compile_plan, registry
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    frozen = {}
+    t0 = time.perf_counter()
+    for proj, k, m in step_shapes(cfg):
+        w = torch.from_numpy(rng.standard_normal((k, m), dtype=np.float32)).to(dev)
+        w /= math.sqrt(k)
+        dead = rng.random((-(-k // 256), -(-m // 256))) < 0.5
+        dead[0, 0] = True
+        live = torch.from_numpy(~dead).to(dev)
+        mask = live.repeat_interleave(256, 0).repeat_interleave(256, 1)[:k, :m]
+        frozen[f"dense/{proj}"] = bitlinear.freeze({"w": w})
+        frozen[f"sparse/{proj}"] = bitlinear.freeze({"w": w * mask})
+    torch.cuda.synchronize()
+    t_freeze = time.perf_counter() - t0
+    for name, fz in frozen.items():
+        sparse = name.startswith("sparse/")
+        _require((fz.sparse is not None) == sparse and (fz.padded is not None) == sparse,
+                 f"{name}: sidecars {fz.sparse is not None}/{fz.padded is not None} "
+                 f"at block density {fz.block_density:.3f}")
+    plan = compile_plan(frozen, BatchProfile(decode_ns=(1, 4), prefill_ns=(20,)))
+    density = {name: round(fz.block_density, 3) for name, fz in frozen.items()}
+    print(f"bitlinear: froze 14 full-width projections on the card in {t_freeze:.2f} s; "
+          f"live-block fractions {density}", flush=True)
+    print("bitlinear: compiled plan kernel counts "
+          f"{ {n: plan.kernel_counts(n) for n in plan.buckets} }", flush=True)
+
+    t_of = {name: ternary.unpack(fz.packed) for name, fz in frozen.items()}
+    plans = ["auto", "compiled"] + list(registry.names())
+    totals = dict.fromkeys(COUNTERS, 0)
+    for n in (1, 4, 20):
+        xs = {k: torch.from_numpy(rng.standard_normal((n, k), dtype=np.float32)).to(dev)
+              for k in {fz.shape[0] for fz in frozen.values()}}
+        exact = {name: ref.quantized_matmul_ref(xs[fz.shape[0]], fz.packed)
+                 for name, fz in frozen.items()}
+        fp = {name: ref.ternary_matmul_ref(xs[fz.shape[0]], t_of[name], fz.packed.scale)
+              for name, fz in frozen.items()}
+        auto = {name: bitlinear.resolve_kernel(fz, n) for name, fz in frozen.items()}
+        for name, kern in auto.items():
+            want = "tsar_sparse" if name.startswith("sparse/") else plan.lookup(name, n).kernel
+            _require(kern == want, f"auto names {kern} for {name} at N={n}, expected {want}")
+        print(f"bitlinear N={n}: auto resolves "
+              f"{ {name: kern for name, kern in auto.items()} }", flush=True)
+        for label in plans:
+            spec = {name: (None if label == "auto" else plan.lookup(name, n)
+                           if label == "compiled" else label) for name in frozen}
+            layers = [name for name in frozen if label in ("auto", "compiled")
+                      or registry.get(label).supports(frozen[name])]
+            resolved = {name: bitlinear.resolve_kernel(frozen[name], n, spec[name])
+                        for name in layers}
+            want = dict.fromkeys(COUNTERS, 0)
+            for kern in resolved.values():
+                if kern in COUNTER_OF:
+                    want[COUNTER_OF[kern]] += 1
+            if label in COUNTER_OF:
+                _require(want[COUNTER_OF[label]] == len(layers) and
+                         len(layers) == (14 if label in ("tsar_mxu", "tsar_lut") else 7),
+                         f"plan={label} covers {len(layers)} projections")
+            if label == "auto":
+                _require(want["tsar_sparse"] == 7, f"auto: {want}")
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            outs = {name: bitlinear.apply_frozen(frozen[name], xs[frozen[name].shape[0]],
+                                                 plan=spec[name]) for name in layers}
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = launch_counts()
+            _require(got == want, f"bitlinear N={n} plan={label}: launches {got}, the "
+                     f"resolved kernels predict {want}")
+            for key in COUNTERS:
+                totals[key] += got[key]
+            for name, y in outs.items():
+                kern = resolved[name]
+                what = f"bitlinear N={n} plan={label} {name} ({kern})"
+                _require(y.dtype == torch.float32 and y.shape == exact[name].shape and
+                         bool(torch.isfinite(y).all()), f"{what}: bad output")
+                if kern in ("tsar_mxu", "tsar_sparse", "tsar_sparse_padded"):
+                    _require(torch.equal(y, exact[name]), f"{what} != quantized oracle")
+                else:
+                    _require(torch.allclose(y, fp[name], rtol=1e-4, atol=2e-3),
+                             f"{what} != fp oracle (max err "
+                             f"{(y - fp[name]).abs().max().item()})")
+            print(f"bitlinear N={n:2d} plan={label}: {len(layers)} projections, "
+                  f"launches {got} = the resolved kernels' | int8 family equal to the "
+                  f"quantized oracle, fp family within rtol 1e-4/atol 2e-3 | host "
+                  f"{wall * 1e3:.1f} ms", flush=True)
+    # bf16 activations come back bf16 through every kernel.
+    fz = frozen["sparse/w_gate"]
+    xb = torch.randn((4, fz.shape[0]), device=dev).to(torch.bfloat16)
+    want = ref.quantized_matmul_ref(xb, fz.packed).to(torch.bfloat16)
+    for kern in registry.names():
+        y = bitlinear.apply_frozen(fz, xb, plan=kern)
+        _require(y.dtype == torch.bfloat16 and bool(torch.isfinite(y).all()),
+                 f"bf16 through {kern}: {y.dtype}")
+        _require(kern not in ("tsar_mxu", "tsar_sparse", "tsar_sparse_padded")
+                 or torch.equal(y, want), f"bf16 through {kern} != quantized oracle")
+    print("bitlinear: bf16 activations return bf16 through all six kernels", flush=True)
+    return {"launches": totals}
+
+
 def make_requests(request_cls, cfg) -> list:
     """The smoke traffic: 8 prompts of 16-128 tokens (numpy seed 0), 16 new
     tokens each."""
@@ -339,20 +657,25 @@ def make_requests(request_cls, cfg) -> list:
                         max_new_tokens=16) for i in range(8)]
 
 
-def launch_counts() -> dict:
+def _counter_dicts() -> list[dict]:
+    from repro_torch.kernels import tsar_lut as tl
     from repro_torch.kernels import tsar_matmul as tm
     from repro_torch.kernels import tsar_sparse as ts
 
-    return {"tsar_matmul": tm.LAUNCHES["tsar_matmul"],
-            "tsar_sparse_padded": ts.LAUNCHES["tsar_sparse_padded"]}
+    return [tm.LAUNCHES, ts.LAUNCHES, tl.LAUNCHES]
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count, under the names of ``COUNTERS``."""
+    counts = {k: v for d in _counter_dicts() for k, v in d.items()}
+    _require(set(counts) == set(COUNTERS), f"launch counters {sorted(counts)}")
+    return {name: counts[name] for name in COUNTERS}
 
 
 def zero_launch_counts() -> None:
-    from repro_torch.kernels import tsar_matmul as tm
-    from repro_torch.kernels import tsar_sparse as ts
-
-    tm.LAUNCHES["tsar_matmul"] = 0
-    ts.LAUNCHES["tsar_sparse_padded"] = 0
+    for d in _counter_dicts():
+        for key in d:
+            d[key] = 0
 
 
 def predicted_launches(engine, widths: list) -> dict:
@@ -363,7 +686,7 @@ def predicted_launches(engine, widths: list) -> dict:
     kernel (or no plan entry) ``tsar_matmul``, once per stacked layer."""
     from repro_torch.plan import registry
 
-    want = {"tsar_matmul": 0, "tsar_sparse_padded": 0}
+    want = dict.fromkeys(COUNTERS, 0)
     for name, (k, m, _c) in engine.plan.shapes.items():
         node = engine.params
         for key in name.split("/"):
@@ -556,7 +879,7 @@ def sparse_engine_phase(torch, cfg) -> dict:
           flush=True)
     run = run_path(torch, engine, make_requests(Request, cfg), "sparse engine")
     steps = engine.stats["steps"]
-    _require(run["launches"] == {"tsar_matmul": 0,
+    _require(run["launches"] == {**dict.fromkeys(COUNTERS, 0),
                                  "tsar_sparse_padded": 7 * cfg.n_layers * steps},
              f"sparse engine launches {run['launches']}, expected "
              f"{7 * cfg.n_layers} x {steps} sparse")
@@ -710,24 +1033,36 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    torch.backends.cuda.matmul.allow_tf32 = False     # float32 products in full float32
+    torch.backends.cudnn.allow_tf32 = False
     cfg = configs.get(ARCH)
-    # 3-4. kernels
+    # 3-6. kernels
     kern = kernel_phase(torch, cfg)
     sparse = sparse_kernel_phase(torch, cfg)
-    # 5-6. engines, one path each
+    lut_res = lut_kernel_phase(torch, cfg)
+    compact = compact_kernel_phase(torch, cfg)
+    # 7-9. paths, each run with the launch counts zeroed just before it
     launches = engine_phase(torch, cfg, profile=args.profile)["launches"]
     cpu_agreement(torch, cfg)
     sparse_launches = sparse_engine_phase(torch, cfg)["launches"]
+    bl_launches = bitlinear_phase(torch, cfg)["launches"]
 
-    # Per kernel: one N=4 pure-decode step, 30 layers x 7 projections.
+    # Per kernel, the seven projections at N=4: times 30 layers for the two
+    # kernels of the serving step (one decode step), one layer for the two of
+    # the bitlinear path.
     decode = [(4, k, m) for _, k, m in step_shapes(cfg)]
+    half_dead = " on pools with half the (256, 256) blocks dead"
     entries = []
-    for name, source, replaces, res, n_launch in (
+    for name, source, replaces, res, n_launch, layers, per in (
             ("tsar_matmul", "tsar_matmul.cu", "src/repro/kernels/tsar_matmul.py:124",
-             kern, launches),
+             kern, launches, cfg.n_layers, ""),
             ("tsar_sparse_padded", "tsar_sparse.cu", "src/repro/kernels/tsar_sparse.py:223",
-             sparse, sparse_launches)):
-        tot = {key: sum(res["rows"][sh][key] for sh in decode) * cfg.n_layers
+             sparse, sparse_launches, cfg.n_layers, half_dead),
+            ("tsar_lut", "tsar_lut.cu", "src/repro/kernels/tsar_lut.py:96",
+             lut_res, bl_launches["tsar_lut"], 1, ", c=4"),
+            ("tsar_sparse", "tsar_sparse.cu", "src/repro/kernels/tsar_sparse.py:122",
+             compact, bl_launches["tsar_sparse"], 1, half_dead)):
+        tot = {key: sum(res["rows"][sh][key] for sh in decode) * layers
                for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
         entries.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
@@ -736,9 +1071,13 @@ def main() -> int:
             "bound_by": ("bytes" if all(res["rows"][sh]["bound_by"] == "bytes"
                                         for sh in decode) else "operations"),
             "library_ms": tot["library_ms"],
-            "per": f"one N=4 decode step: {7 * cfg.n_layers} launches at the "
-                   "bitnet-2b-4t shapes" + (" on pools with half the (256, 256) "
-                                            "blocks dead" if res is sparse else "")})
+            "per": (f"one N=4 decode step: {7 * layers} launches at the bitnet-2b-4t "
+                    f"shapes{per}" if layers > 1 else
+                    f"one bitnet-2b-4t layer's 7 projections at N=4{per}; launches "
+                    "over the bitlinear path's runs")})
+    # The card again at the end: the first line is far above the tail of a
+    # long log, and the limit is what every number above was taken under.
+    print(gpu_line(), flush=True)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,11 @@
 costs, with a strict improvement required of the sparse family;
 :func:`select_dataflow` picks the paper's AP (activation-persistent) or OP
 (output-persistent) order; :func:`sparse_break_even` finds the block
-density below which a sparse kernel wins.  The cost models read the H100
-constants of ``repro_torch.core.hw``; the serving engine runs all of this
-once, at init, through ``repro_torch.plan.compile_plan``.
+density below which a sparse kernel wins; :func:`layer_plan` is the
+per-shape plan, a thin wrapper over ``plan.compile_plan_from_shapes``.
+The cost models read the H100 constants of ``repro_torch.core.hw``; the
+serving engine runs all of this once, at init, through
+``repro_torch.plan.compile_plan``.
 """
 from __future__ import annotations
 
@@ -24,6 +26,23 @@ class KernelChoice:
     est_time_s: float
     bound: str           # 'compute' | 'memory'
     detail: dict
+
+
+# The per-kernel cost models live on the registry's impls; these keep the
+# reference's private names callable.
+
+def _tsar_mxu_cost(n: int, k: int, m: int) -> tuple[float, float]:
+    return _registry.get("tsar_mxu").cost(n, k, m)
+
+
+def _tsar_lut_cost(n: int, k: int, m: int, c: int) -> tuple[float, float]:
+    return _registry.get("tsar_lut").cost(n, k, m, c)
+
+
+def _tsar_sparse_cost(n: int, k: int, m: int, block_density: float,
+                      block_shape: tuple = SPARSE_BLOCK) -> tuple[float, float]:
+    return _registry.get("tsar_sparse").cost(
+        n, k, m, block_density=block_density, block_shape=block_shape)
 
 
 def select_kernel(n: int, k: int, m: int, c: int = 4,
@@ -115,3 +134,22 @@ def select_dataflow(n: int, k: int, m: int, c: int = 4,
     if out_bytes <= smem_budget * 0.5 and m >= n:
         return "OP"
     return "AP" if n * k >= m else "OP"
+
+
+def layer_plan(shapes: dict, c: int = 4) -> dict[str, KernelChoice]:
+    """Whole-model compile-time plan: layer name -> choice, from specs
+    ``(n, k, m)``, ``(n, k, m, c)`` or dicts with optional per-layer ``c``,
+    ``density`` and ``block_density`` (see
+    ``repro_torch.plan.compile_plan_from_shapes``, which it wraps)."""
+    from repro_torch.plan.plan import compile_plan_from_shapes
+
+    mp = compile_plan_from_shapes(shapes, c=c)
+    out: dict[str, KernelChoice] = {}
+    for name, by_bucket in mp.layers.items():
+        ((n, lp),) = by_bucket.items()
+        out[name] = KernelChoice(
+            kernel=lp.kernel, dataflow=lp.dataflow, est_time_s=lp.est_time_s,
+            bound=lp.bound,
+            detail={"density": lp.density, "tile_sizes": lp.tile_sizes,
+                    "bucket": n})
+    return out

@@ -109,6 +109,60 @@ def unpack_dequant(tw: TernaryWeights) -> torch.Tensor:
     return unpack(tw, torch.float32) * tw.scale[None, :].to(torch.float32)
 
 
+def pack_indices(t: torch.Tensor, c: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Encode ternary (K, M) weights as per-block LUT indices (the paper's
+    compile-time weight encoding).
+
+    Returns ``(idx_pos, idx_zero)``, uint8 (ceil(K/c), M) (requires
+    ``c <= 8``): bit i of ``idx_pos`` is set iff ``w[block*c + i] == +1``,
+    bit i of ``idx_zero`` iff ``w[block*c + i] == 0``.  With the shared LUT
+    ``S[p] = sum_i bit_i(p) * a_i``, ``<w, a>_block = 2*S[idx_pos] +
+    S[idx_zero] - sum(a_block)``.  A ragged K is zero-padded, so pad
+    positions carry the ``idx_zero`` bit and contribute ``a_i - a_i = 0``.
+    """
+    if c > 8:
+        raise ValueError("block size c must be <= 8 to fit uint8 indices")
+    k, m = t.shape
+    pad = (-k) % c
+    if pad:
+        t = torch.nn.functional.pad(t, (0, 0, 0, pad))
+    blocks = t.reshape((k + pad) // c, c, m)
+    shifts = (1 << torch.arange(c, dtype=torch.int32, device=t.device)).reshape(1, c, 1)
+    zero = torch.zeros((), dtype=torch.int32, device=t.device)
+    idx_pos = torch.sum(torch.where(blocks > 0, shifts, zero), dim=1).to(torch.uint8)
+    idx_zero = torch.sum(torch.where(blocks == 0, shifts, zero), dim=1).to(torch.uint8)
+    return idx_pos, idx_zero
+
+
+def unpack_indices(idx_pos: torch.Tensor, idx_zero: torch.Tensor, c: int,
+                   k: int | None = None) -> torch.Tensor:
+    """Inverse of :func:`pack_indices` -> dense ternary (k, M) int8; ``k``
+    drops a zero-padded ragged tail (default: all ``blocks * c`` rows)."""
+    blocks, m = idx_pos.shape
+    kp = blocks * c
+    shifts = torch.arange(c, dtype=torch.int32, device=idx_pos.device).reshape(1, c, 1)
+    pos = (idx_pos[:, None, :].to(torch.int32) >> shifts) & 1
+    zero = (idx_zero[:, None, :].to(torch.int32) >> shifts) & 1
+    vals = torch.where(pos == 1, 1, torch.where(zero == 1, 0, -1))
+    return vals.reshape(kp, m)[:kp if k is None else k].to(torch.int8)
+
+
+def zero_plane_density(zero_plane: torch.Tensor, k: int) -> torch.Tensor:
+    """Nonzero-weight fraction measured from a packed (ceil(K/8), ...) zero
+    plane; pad bits beyond ``k`` are excluded."""
+    return 1.0 - torch.mean(_unpack_bits(zero_plane, k).to(torch.float32))
+
+
+def random_ternary(generator: torch.Generator, shape: tuple,
+                   p_zero: float = 1.0 / 3.0) -> torch.Tensor:
+    """Random ternary int8 matrix on ``generator``'s device (tests and
+    benchmarks): zero with probability ``p_zero``, else +-1 evenly."""
+    dev = generator.device
+    zero = torch.rand(shape, generator=generator, device=dev) < p_zero
+    sign = torch.rand(shape, generator=generator, device=dev) < 0.5
+    return torch.where(zero, 0, torch.where(sign, 1, -1)).to(torch.int8)
+
+
 def quantize_activations(a: torch.Tensor, eps: float = 1e-6
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-token absmax int8 quantization: ``a`` (..., K) float ->

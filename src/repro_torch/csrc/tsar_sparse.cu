@@ -1,9 +1,13 @@
-// Padded-pool block-sparse packed-ternary matmul for Hopper (sm_90a).
+// Block-sparse packed-ternary matmul for Hopper (sm_90a): two entry points
+// over one kernel template.
 //
-// Replaces the TPU kernel
-// src/repro/kernels/tsar_sparse.py::tsar_sparse_padded_matmul_packed
-// (pallas_call at :223, body _kernel_2d at :135).  With the weights tiled
-// into (bk, bm) blocks and only the live ones kept in a padded pool,
+// Replaces the TPU kernels of src/repro/kernels/tsar_sparse.py:
+//   tsar_sparse_padded_matmul_packed (pallas_call at :223, body _kernel_2d at
+//     :135), the padded pool of the serving step, with the activation skip;
+//   tsar_sparse_matmul_packed (pallas_call at :122, body _kernel at :46), the
+//     compacted pool of core/bitlinear, without it.
+// With the weights tiled into (bk, bm) blocks and only the live ones kept in
+// a pool,
 //
 //   y[n, j*bm + c] = (f32(sum_{s < counts[j]} sum_{r < bk}
 //                          a_q[n, kids[j,s]*bk + r] * t_{slots[j,s]}[r, c])
@@ -11,10 +15,14 @@
 //
 // where t_slot = (1 - 2*sign) * (1 - zero) is decoded from the pool's two
 // LSB-first uint8 planes, (bk/8, bm) bytes each.  The int32 sum skips dead
-// weight blocks (the strip walks only its counts[j] live steps) and (BN, bk)
-// activation tiles that are all zero; both skips drop exact int32 zeros, so
-// the result is bit-identical to tsar_matmul on the decoded matrix and to
-// the plain version (repro_torch/kernels/tsar_sparse.py).
+// weight blocks (the strip walks only its counts[j] live steps) and, in the
+// padded entry point, (BN, bk) activation tiles that are all zero; both skips
+// drop exact int32 zeros, so the result is bit-identical to tsar_matmul on
+// the decoded matrix and to the plain version
+// (repro_torch/kernels/tsar_sparse.py).  The two pool formats differ only
+// in size (max_live slots and an s_steps walk, or max(n_live, 1) slots and a
+// max(s_max, 1) walk); the kernel reads s_steps only as the row stride of
+// kids/slots, so one body serves both.
 //
 // What bounds it: the serving step calls it at N = 4 or 20 rows, so it is
 // bound by the plane bytes of the live blocks, sum_j counts[j] * 2 * bk/8 *
@@ -22,14 +30,15 @@
 //
 // * a CTA owns one 64-column sub-tile of one m-strip and up to 32 rows, and
 //   walks the strip's live steps as a data-dependent loop (no masked tail
-//   steps: s_steps is only the row stride of kids/slots);
+//   steps);
 // * there are only mb = 3..27 strips against 132 SMs, so the walk is split
 //   across gridDim.z (CTA z takes steps z, z + Z, ...), and the partial int32
 //   sums meet in a workspace through integer atomics, exact in any order;
-// * per live step the activation k-slice is staged in shared memory; a
-//   block whose slice is all zero for the CTA's rows is skipped before any
-//   pool byte is read (the activation-liveness map of the TPU kernel,
-//   computed here from the staged tile instead of in a separate pass);
+// * per live step the activation k-slice is staged in shared memory; with
+//   kSkipZeroActs, a block whose slice is all zero for the CTA's rows is
+//   skipped before any pool byte is read (the activation-liveness map of the
+//   padded TPU kernel, computed here from the staged tile instead of in a
+//   separate pass);
 // * the pool bytes are read coalesced along bm, decoded in registers with
 //   the bit trick of tsar_common.cuh and consumed by __dp4a, as in
 //   tsar_matmul.cu; the epilogue multiplies with __fmul_rn in the same order.
@@ -50,20 +59,20 @@ constexpr int kThreads = kColGroups * kKGroups;      // 256
 constexpr int kTileCols = kColGroups * kColsPerThread;   // 64 columns per CTA
 constexpr int kKChunk = 256;                         // k values staged per pass
 
-template <int BN>
+template <int BN, bool kSkipZeroActs>
 __global__ void __launch_bounds__(kThreads)
-tsar_sparse_padded_kernel(const int8_t* __restrict__ a_q,        // (N, Kp)
-                          const float* __restrict__ a_scale,     // (N,)
-                          const uint8_t* __restrict__ sign_pool, // (max_live, bk/8, bm)
-                          const uint8_t* __restrict__ zero_pool, // (max_live, bk/8, bm)
-                          const int32_t* __restrict__ kids,      // (mb, s_steps)
-                          const int32_t* __restrict__ slots,     // (mb, s_steps)
-                          const int32_t* __restrict__ counts,    // (mb,)
-                          const float* __restrict__ w_scale,     // (mb * bm,)
-                          float* __restrict__ out,               // (N, mb * bm)
-                          int32_t* __restrict__ ws,              // (N, mb * bm) when split
-                          int n, int kp, int bk, int bm, int mb, int s_steps,
-                          int tiles_per_strip) {
+tsar_sparse_kernel(const int8_t* __restrict__ a_q,        // (N, Kp)
+                   const float* __restrict__ a_scale,     // (N,)
+                   const uint8_t* __restrict__ sign_pool, // (max_live, bk/8, bm)
+                   const uint8_t* __restrict__ zero_pool, // (max_live, bk/8, bm)
+                   const int32_t* __restrict__ kids,      // (mb, s_steps)
+                   const int32_t* __restrict__ slots,     // (mb, s_steps)
+                   const int32_t* __restrict__ counts,    // (mb,)
+                   const float* __restrict__ w_scale,     // (mb * bm,)
+                   float* __restrict__ out,               // (N, mb * bm)
+                   int32_t* __restrict__ ws,              // (N, mb * bm) when split
+                   int n, int kp, int bk, int bm, int mb, int s_steps,
+                   int tiles_per_strip) {
   __shared__ __align__(8) int32_t act[BN][kKChunk / 4];
   __shared__ int32_t red[BN][kTileCols];
 
@@ -113,9 +122,14 @@ tsar_sparse_padded_kernel(const int8_t* __restrict__ a_q,        // (N, Kp)
         act[r][w] = v;
         nz |= v;
       }
-      // Barrier and vote in one: an all-zero activation tile adds exact
-      // int32 zeros, so its pool bytes are never read.
-      if (!__syncthreads_or(nz != 0) || !col_ok) continue;
+      if constexpr (kSkipZeroActs) {
+        // Barrier and vote in one: an all-zero activation tile adds exact
+        // int32 zeros, so its pool bytes are never read.
+        if (!__syncthreads_or(nz != 0)) continue;
+      } else {
+        __syncthreads();
+      }
+      if (!col_ok) continue;
 #pragma unroll 2
       for (int jr = kg; jr < chunk / 8; jr += kKGroups) {
         const size_t off = (size_t)(k0 / 8 + jr) * bm + cl;
@@ -173,7 +187,7 @@ tsar_sparse_padded_kernel(const int8_t* __restrict__ a_q,        // (N, Kp)
   }
 }
 
-template <int BN>
+template <int BN, bool kSkipZeroActs>
 void launch(const int8_t* a_q, const float* a_scale, const uint8_t* sign_pool,
             const uint8_t* zero_pool, const int32_t* kids, const int32_t* slots,
             const int32_t* counts, const float* w_scale, float* out, int32_t* ws,
@@ -181,26 +195,17 @@ void launch(const int8_t* a_q, const float* a_scale, const uint8_t* sign_pool,
             cudaStream_t stream) {
   const int tiles_per_strip = (bm + kTileCols - 1) / kTileCols;
   dim3 grid(mb * tiles_per_strip, (n + BN - 1) / BN, splits);
-  tsar_sparse_padded_kernel<BN><<<grid, kThreads, 0, stream>>>(
+  tsar_sparse_kernel<BN, kSkipZeroActs><<<grid, kThreads, 0, stream>>>(
       a_q, a_scale, sign_pool, zero_pool, kids, slots, counts, w_scale, out, ws,
       n, kp, bk, bm, mb, s_steps, tiles_per_strip);
 }
 
-}  // namespace
-
-// Plain C entry point (bound with ctypes).  Returns cudaGetLastError() after
-// the launches; the caller raises when it is not cudaSuccess.
-//
-// Preconditions, checked by the Python wrapper: kp == kb * bk with bk % 8 ==
-// 0, bm % 4 == 0, every pointer on the current device, the pools 4-byte
-// aligned, and ws pointing at an int32 (n, mb * bm) buffer when splits > 1.
-// The schedule comes from the padded format: kids[j, s] < kb and
-// slots[j, s] < max_live for s < counts[j] <= s_steps.
-extern "C" int tsar_sparse_padded_matmul_packed(
-    const void* a_q, const void* a_scale, const void* sign_pool,
-    const void* zero_pool, const void* kids, const void* slots,
-    const void* counts, const void* w_scale, void* out, void* ws, int n, int kp,
-    int bk, int bm, int mb, int s_steps, int bn, int splits, void* stream_ptr) {
+template <bool kSkipZeroActs>
+int run(const void* a_q, const void* a_scale, const void* sign_pool,
+        const void* zero_pool, const void* kids, const void* slots,
+        const void* counts, const void* w_scale, void* out, void* ws, int n,
+        int kp, int bk, int bm, int mb, int s_steps, int bn, int splits,
+        void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   auto* a = static_cast<const int8_t*>(a_q);
   auto* as = static_cast<const float*>(a_scale);
@@ -220,8 +225,8 @@ extern "C" int tsar_sparse_padded_matmul_packed(
   switch (bn) {
 #define TSAR_CASE(B)                                                                \
     case B:                                                                         \
-      launch<B>(a, as, sp, zp, kd, sl, ct, wsc, o, w, n, kp, bk, bm, mb, s_steps,   \
-                splits, stream);                                                    \
+      launch<B, kSkipZeroActs>(a, as, sp, zp, kd, sl, ct, wsc, o, w, n, kp, bk, bm, \
+                               mb, s_steps, splits, stream);                        \
       break;
     TSAR_CASE(4) TSAR_CASE(8) TSAR_CASE(12) TSAR_CASE(16)
     TSAR_CASE(20) TSAR_CASE(24) TSAR_CASE(28) TSAR_CASE(32)
@@ -230,4 +235,32 @@ extern "C" int tsar_sparse_padded_matmul_packed(
   }
   if (splits > 1) tsar::launch_epilogue(w, as, wsc, o, n, mp, stream);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes).  Each returns cudaGetLastError()
+// after its launches; the caller raises when it is not cudaSuccess.
+//
+// Preconditions, checked by the Python wrapper: kp == kb * bk with bk % 8 ==
+// 0, bm % 4 == 0, every pointer on the current device, the pools 4-byte
+// aligned, and ws pointing at an int32 (n, mb * bm) buffer when splits > 1.
+// The schedule comes from the pool's format: kids[j, s] < kb and
+// slots[j, s] < the pool's slots for s < counts[j] <= s_steps.
+extern "C" int tsar_sparse_padded_matmul_packed(
+    const void* a_q, const void* a_scale, const void* sign_pool,
+    const void* zero_pool, const void* kids, const void* slots,
+    const void* counts, const void* w_scale, void* out, void* ws, int n, int kp,
+    int bk, int bm, int mb, int s_steps, int bn, int splits, void* stream_ptr) {
+  return run<true>(a_q, a_scale, sign_pool, zero_pool, kids, slots, counts, w_scale,
+                   out, ws, n, kp, bk, bm, mb, s_steps, bn, splits, stream_ptr);
+}
+
+extern "C" int tsar_sparse_matmul_packed(
+    const void* a_q, const void* a_scale, const void* sign_pool,
+    const void* zero_pool, const void* kids, const void* slots,
+    const void* counts, const void* w_scale, void* out, void* ws, int n, int kp,
+    int bk, int bm, int mb, int s_steps, int bn, int splits, void* stream_ptr) {
+  return run<false>(a_q, a_scale, sign_pool, zero_pool, kids, slots, counts, w_scale,
+                    out, ws, n, kp, bk, bm, mb, s_steps, bn, splits, stream_ptr);
 }

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels and their wrappers.
 
-Ported: ``tsar_matmul`` and ``tsar_sparse_padded`` (the padded-pool sparse
-kernel).  ``tsar_lut_gemv`` and the compacted ``tsar_sparse_matmul_packed``
-of the reference package come with the ``core/bitlinear`` slice (see
-ROADMAP.md).
+Every TPU kernel of the reference package has its counterpart here:
+``tsar_matmul`` (``csrc/tsar_matmul.cu``), the padded and compacted
+block-sparse kernels (two entry points of ``csrc/tsar_sparse.cu``) and
+``tsar_lut`` (``csrc/tsar_lut.cu``).  ``_build.SOURCES`` lists the three
+libraries.
 """

@@ -23,6 +23,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
+# Every kernel library of the port, ``csrc/<name>.cu`` each.
+SOURCES = ("tsar_matmul", "tsar_sparse", "tsar_lut")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

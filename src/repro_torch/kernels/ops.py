@@ -1,10 +1,11 @@
-"""Public wrappers for the packed-ternary kernels (port of
-``repro/kernels/ops.py``: ``tsar_matmul`` and ``tsar_sparse_padded_matmul``).
+"""Public wrappers for the hand-written kernels (port of
+``repro/kernels/ops.py``): ``tsar_matmul``, ``tsar_sparse_matmul``,
+``tsar_sparse_padded_matmul`` and ``tsar_lut_gemv``.
 
-Each flattens leading dims, quantizes the activations per token, pads only
-as far as its CUDA kernel needs, launches, and slices the padding off.  The
-reference's 8/128 tile alignment is a TPU constraint and does not apply
-here.
+Each flattens leading dims, quantizes the activations per token (all but
+``tsar_lut_gemv``, which takes them in float32), pads only as far as its
+CUDA kernel needs, launches, and slices the padding off.  The reference's
+8/128 tile alignment is a TPU constraint and does not apply here.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import ternary
+from repro_torch.kernels import tsar_lut as _lut_kernel
 from repro_torch.kernels import tsar_matmul as _mxu_kernel
 from repro_torch.kernels import tsar_sparse as _sparse_kernel
 
@@ -58,6 +60,30 @@ def tsar_matmul(x: torch.Tensor, tw: ternary.TernaryWeights, *,
     return y[:, :m].reshape(lead + (m,))
 
 
+def tsar_sparse_matmul(x: torch.Tensor, bst) -> torch.Tensor:
+    """BitLinear matmul through the compacted-pool zero-skip kernel.
+
+    ``x`` (..., K) float -> (..., M) float32, with the weights a
+    ``sparse.format.BlockSparseTernary``: per-token int8 quantization, K
+    zero-padded to ``kb * bk`` (pad channels meet zero-padded weight tails or
+    dead blocks), the kernel walks each m-strip's live blocks only, and the
+    padded M columns are sliced off.  Bit-identical to :func:`tsar_matmul`.
+    """
+    k, m = bst.shape
+    if x.shape[-1] != k:
+        raise ValueError(f"x has {x.shape[-1]} features, weights expect {k}")
+    bk, bm = bst.block_shape
+    kb, mb = bst.grid
+    lead = tuple(x.shape[:-1])
+    a_q, a_scale = ternary.quantize_activations(x.reshape(-1, k).to(torch.float32))
+    a_q = _pad_to(a_q, 1, kb * bk)
+    wsc = _pad_to(bst.scale, 0, mb * bm)
+    y = _sparse_kernel.tsar_sparse_matmul_packed(
+        a_q.contiguous(), a_scale, bst.sign_pool, bst.zero_pool, bst.kids,
+        bst.slots, bst.counts, wsc.contiguous())
+    return y[:, :m].reshape(lead + (m,))
+
+
 def tsar_sparse_padded_matmul(x: torch.Tensor, pbst) -> torch.Tensor:
     """BitLinear matmul through the padded-pool zero-skip kernel.
 
@@ -84,4 +110,28 @@ def tsar_sparse_padded_matmul(x: torch.Tensor, pbst) -> torch.Tensor:
     y = _sparse_kernel.tsar_sparse_padded_matmul_packed(
         a_q.contiguous(), a_scale, pbst.sign_pool, pbst.zero_pool, pbst.kids,
         pbst.slots, pbst.counts, wsc.contiguous())
+    return y[:, :m].reshape(lead + (m,))
+
+
+def tsar_lut_gemv(x: torch.Tensor, idx_pos: torch.Tensor, idx_zero: torch.Tensor,
+                  w_scale: torch.Tensor, c: int = 4) -> torch.Tensor:
+    """BitLinear matmul through the shared-LUT kernel.
+
+    ``x`` (..., K) float -> (..., M) float32, with (ceil(K/c), M) uint8
+    encodings from ``core.ternary.pack_indices``.  The activations stay
+    float32 (no quantization); K is zero-padded to ``blocks * c`` only
+    (padded channels build all-zero LUT entries, so any index adds 0), and M
+    to a multiple of 4 for the kernel's 4-column loads.
+    """
+    blocks, m = idx_pos.shape
+    k = x.shape[-1]
+    if k > blocks * c:
+        raise ValueError(f"x has {k} features, indices cover {blocks * c}")
+    lead = tuple(x.shape[:-1])
+    x2 = _pad_to(x.reshape(-1, k).to(torch.float32), 1, blocks * c)
+    ip = _pad_to(idx_pos, 1, 4)
+    iz = _pad_to(idx_zero, 1, 4)
+    wsc = _pad_to(w_scale.to(torch.float32), 0, 4)
+    y = _lut_kernel.tsar_lut_gemv(x2.contiguous(), ip.contiguous(), iz.contiguous(),
+                                  wsc.contiguous(), c=c)
     return y[:, :m].reshape(lead + (m,))

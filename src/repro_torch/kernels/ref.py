@@ -40,3 +40,13 @@ def padded_sparse_matmul_ref(a: torch.Tensor, pbst) -> torch.Tensor:
 
     t = sparse_format.padded_to_ternary(pbst)
     return quantized_matmul_ref(a, ternary.pack(t, pbst.scale))
+
+
+def block_sparse_matmul_ref(a: torch.Tensor, bst) -> torch.Tensor:
+    """Oracle for the compacted zero-block-skipping path: decode the pool
+    back to a dense ternary matrix, then run the exact quantized pipeline.
+    The compacted sparse kernel must match it bit for bit."""
+    from repro_torch.sparse import format as sparse_format
+
+    t = sparse_format.to_ternary(bst)
+    return quantized_matmul_ref(a, ternary.pack(t, bst.scale))

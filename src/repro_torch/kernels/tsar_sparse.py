@@ -1,22 +1,29 @@
-"""Padded-pool block-sparse packed-ternary matmul: the hand-written Hopper
-kernel and its plain version.
+"""Block-sparse packed-ternary matmul: the hand-written Hopper kernels and
+their plain version.
 
-Replaces ``src/repro/kernels/tsar_sparse.py::tsar_sparse_padded_matmul_packed``
-(the ``pallas_call`` at :223, body ``_kernel_2d`` at :135).  The CUDA source
-is ``repro_torch/csrc/tsar_sparse.cu``; it is built with ``nvcc`` for
-``sm_90a`` on first use and bound through ``ctypes``.
+Two entry points of ``repro_torch/csrc/tsar_sparse.cu`` (built with
+``nvcc`` for ``sm_90a`` on first use and bound through ``ctypes``):
 
-What bounds it: on the serving path N is 4 or 20, so the call is bound by
-the plane bytes of the live blocks, ``sum_j counts[j] * 2 * (bk/8) * bm``,
-plus the activations, the output, the scales and the schedule.  Each m-strip
-walks only its ``counts[j]`` live blocks, gathering each pool slot by index;
-an activation k-slice that is all zero for a CTA's rows is skipped before
-its pool bytes are read.  Both skips drop exact int32 zeros, so the output is
-bit-identical to ``tsar_matmul`` on the decoded matrix.
+* :func:`tsar_sparse_padded_matmul_packed` replaces
+  ``src/repro/kernels/tsar_sparse.py::tsar_sparse_padded_matmul_packed``
+  (the ``pallas_call`` at :223, body ``_kernel_2d`` at :135): the padded
+  pool of the serving step, with the activation-tile skip;
+* :func:`tsar_sparse_matmul_packed` replaces
+  ``src/repro/kernels/tsar_sparse.py::tsar_sparse_matmul_packed`` (the
+  ``pallas_call`` at :122, body ``_kernel`` at :46): the compacted pool of
+  ``core.bitlinear`` (``max(n_live, 1)`` slots, a ``max(s_max, 1)`` walk),
+  without the activation skip, as the TPU kernel has none.
 
-On a CPU tensor :func:`tsar_sparse_padded_matmul_packed` computes the plain
-version; on a CUDA tensor it launches the kernel or raises.  ``LAUNCHES``
-counts the launches, and only those.
+What bounds them: at N = 4 or 20 rows the call is bound by the plane bytes
+of the live blocks, ``sum_j counts[j] * 2 * (bk/8) * bm``, plus the
+activations, the output, the scales and the schedule.  Each m-strip walks
+only its ``counts[j]`` live blocks, gathering each pool slot by index.  The
+skips drop exact int32 zeros, so both outputs are bit-identical to
+``tsar_matmul`` on the decoded matrix and to the one plain version.
+
+On a CPU tensor each wrapper computes the plain version; on a CUDA tensor
+it launches its kernel or raises.  ``LAUNCHES`` counts each entry point's
+launches apart, and only those.
 """
 from __future__ import annotations
 
@@ -28,8 +35,8 @@ import torch
 from repro_torch.core import ternary
 from repro_torch.kernels import tsar_matmul as _mxu_kernel
 
-# Launch counter; chip_smoke.py zeroes it before driving the serving path.
-LAUNCHES = {"tsar_sparse_padded": 0}
+# Launch counters; chip_smoke.py zeroes them before driving a path.
+LAUNCHES = {"tsar_sparse_padded": 0, "tsar_sparse": 0}
 
 _TILE_COLS = 64          # kTileCols in the CUDA source
 
@@ -38,7 +45,7 @@ def tsar_sparse_padded_plain(a_q: torch.Tensor, a_scale: torch.Tensor,
                              sign_pool: torch.Tensor, zero_pool: torch.Tensor,
                              kids: torch.Tensor, slots: torch.Tensor,
                              counts: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
-    """The kernel's function in plain PyTorch, on any device.
+    """Both kernels' function in plain PyTorch, on any device.
 
     Decodes the pool slot of every walk step, zeroes the steps past
     ``counts[j]``, and sums ``a_q``'s k-block times the decoded block in
@@ -59,23 +66,29 @@ def tsar_sparse_padded_plain(a_q: torch.Tensor, a_scale: torch.Tensor,
     return acc.to(torch.float32) * a_scale * w_scale
 
 
+# The compacted kernel computes the same function: the walk over counts[j]
+# live steps is the same, and the padded kernel's activation skip only drops
+# exact int32 zeros.
+tsar_sparse_compact_plain = tsar_sparse_padded_plain
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-# C signature of tsar_sparse_padded_matmul_packed: 10 pointers (a_q, a_scale,
-# sign_pool, zero_pool, kids, slots, counts, w_scale, out, workspace),
-# 8 ints (n, kp, bk, bm, mb, s_steps, bn, splits), the stream.
+# C signature of both entry points: 10 pointers (a_q, a_scale, sign_pool,
+# zero_pool, kids, slots, counts, w_scale, out, workspace), 8 ints (n, kp,
+# bk, bm, mb, s_steps, bn, splits), the stream.
 _PROTO = ctypes.CFUNCTYPE(ctypes.c_int, *([ctypes.c_void_p] * 10),
                           *([ctypes.c_int] * 8), ctypes.c_void_p)
 
 
 @functools.lru_cache(maxsize=None)
-def _lib():
+def _entry(symbol: str):
     from repro_torch.kernels import _build
 
-    return _PROTO(("tsar_sparse_padded_matmul_packed", _build.load("tsar_sparse")))
+    return _PROTO((symbol, _build.load("tsar_sparse")))
 
 
 def launch_config(n: int, bm: int, mb: int, s_steps: int,
@@ -123,18 +136,10 @@ def _check(a_q, a_scale, sign_pool, zero_pool, kids, slots, counts, w_scale) -> 
         raise ValueError(f"w_scale must be ({mb * bm},), got {tuple(w_scale.shape)}")
 
 
-def tsar_sparse_padded_matmul_packed(a_q: torch.Tensor, a_scale: torch.Tensor,
-                                     sign_pool: torch.Tensor, zero_pool: torch.Tensor,
-                                     kids: torch.Tensor, slots: torch.Tensor,
-                                     counts: torch.Tensor,
-                                     w_scale: torch.Tensor) -> torch.Tensor:
-    """(N, Kp) int8 x padded block pool -> (N, mb*bm) float32.
-
-    ``Kp = kb * bk`` (zero-padded), pools (max_live, bk/8, bm) uint8, the
-    schedule ``kids``/``slots`` (mb, s_steps) and ``counts`` (mb,) int32,
-    ``a_scale`` (N, 1) and ``w_scale`` (mb*bm,) float32.  On CUDA the kernel
-    needs ``bm % 4 == 0`` and 4-byte-aligned pools.
-    """
+def _launch(symbol: str, counter: str, a_q, a_scale, sign_pool, zero_pool,
+            kids, slots, counts, w_scale) -> torch.Tensor:
+    """Check the inputs, then the plain version on the CPU, or one launch of
+    the CUDA entry point ``symbol`` counted under ``LAUNCHES[counter]``."""
     _check(a_q, a_scale, sign_pool, zero_pool, kids, slots, counts, w_scale)
     if a_q.device.type == "cpu":
         return tsar_sparse_padded_plain(a_q, a_scale, sign_pool, zero_pool,
@@ -158,12 +163,42 @@ def tsar_sparse_padded_matmul_packed(a_q: torch.Tensor, a_scale: torch.Tensor,
           if splits > 1 else None)
     with torch.cuda.device(a_q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib()(a_q.data_ptr(), a_scale.data_ptr(), sign_pool.data_ptr(),
-                     zero_pool.data_ptr(), kids.data_ptr(), slots.data_ptr(),
-                     counts.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
-                     None if ws is None else ws.data_ptr(),
-                     n, kp, 8 * k8, bm, mb, s_steps, bn, splits, stream)
+        err = _entry(symbol)(a_q.data_ptr(), a_scale.data_ptr(), sign_pool.data_ptr(),
+                             zero_pool.data_ptr(), kids.data_ptr(), slots.data_ptr(),
+                             counts.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
+                             None if ws is None else ws.data_ptr(),
+                             n, kp, 8 * k8, bm, mb, s_steps, bn, splits, stream)
     if err != 0:
-        raise RuntimeError(f"tsar_sparse_padded kernel launch failed: CUDA error {err}")
-    LAUNCHES["tsar_sparse_padded"] += 1
+        raise RuntimeError(f"{counter} kernel launch failed: CUDA error {err}")
+    LAUNCHES[counter] += 1
     return out
+
+
+def tsar_sparse_padded_matmul_packed(a_q: torch.Tensor, a_scale: torch.Tensor,
+                                     sign_pool: torch.Tensor, zero_pool: torch.Tensor,
+                                     kids: torch.Tensor, slots: torch.Tensor,
+                                     counts: torch.Tensor,
+                                     w_scale: torch.Tensor) -> torch.Tensor:
+    """(N, Kp) int8 x padded block pool -> (N, mb*bm) float32.
+
+    ``Kp = kb * bk`` (zero-padded), pools (max_live, bk/8, bm) uint8, the
+    schedule ``kids``/``slots`` (mb, s_steps) and ``counts`` (mb,) int32,
+    ``a_scale`` (N, 1) and ``w_scale`` (mb*bm,) float32.  On CUDA the kernel
+    needs ``bm % 4 == 0`` and 4-byte-aligned pools.
+    """
+    return _launch("tsar_sparse_padded_matmul_packed", "tsar_sparse_padded", a_q,
+                   a_scale, sign_pool, zero_pool, kids, slots, counts, w_scale)
+
+
+def tsar_sparse_matmul_packed(a_q: torch.Tensor, a_scale: torch.Tensor,
+                              sign_pool: torch.Tensor, zero_pool: torch.Tensor,
+                              kids: torch.Tensor, slots: torch.Tensor,
+                              counts: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
+    """(N, Kp) int8 x compacted block pool -> (N, mb*bm) float32.
+
+    The operands of :func:`tsar_sparse_padded_matmul_packed`, taken from a
+    ``BlockSparseTernary``: pools (max(n_live, 1), bk/8, bm) and a
+    ``kids``/``slots`` walk (mb, max(s_max, 1)).
+    """
+    return _launch("tsar_sparse_matmul_packed", "tsar_sparse", a_q, a_scale,
+                   sign_pool, zero_pool, kids, slots, counts, w_scale)

@@ -241,19 +241,32 @@ def _iter_bitlinear_layers(params, default_c: int):
     """Yield (name, k, m, c, density, block_density, sparse_ok, block_shape)
     per BitLinear layer.
 
-    Understands packed dicts (``layers.pack_linear`` / ``freeze_params``
-    output) and latent ``{'w'}`` dicts.  A stacked weight is one entry:
-    every slice shares a shape and therefore a plan; the stamped density
-    leaves are averaged.  ``sparse_ok`` is the sparse kernels the layer's
-    stored formats can serve (``sp_*`` padded-pool leaves support
-    ``tsar_sparse_padded`` only) and ``block_shape`` the format's tiling, so
-    a plan never commits to a sparse kernel the layer cannot run.
-    ``FrozenBitLinear`` layers come with the ``core/bitlinear`` slice.
+    Understands ``core.bitlinear.FrozenBitLinear`` layers, packed dicts
+    (``layers.pack_linear`` / ``freeze_params`` output) and latent ``{'w'}``
+    dicts.  A stacked weight is one entry: every slice shares a shape and
+    therefore a plan; the stamped density leaves are averaged.
+    ``sparse_ok`` is the sparse kernels the layer's stored formats can serve
+    (``sp_*`` padded-pool leaves support ``tsar_sparse_padded`` only) and
+    ``block_shape`` the format's tiling, so a plan never commits to a sparse
+    kernel the layer cannot run.
     """
     def mean(leaf) -> float:
         return float(torch.mean(leaf.to(torch.float32)))
 
     def walk(node, path):
+        if hasattr(node, "packed") and hasattr(node, "c"):   # FrozenBitLinear
+            k, m = node.shape
+            sparse_ok = tuple(kn for kn in registry.SPARSE_KERNELS
+                              if registry.get(kn).supports(node))
+            sidecar = node.sparse if node.sparse is not None else node.padded
+            yield (path or "layer", _pad8(k), m, int(node.c),
+                   float(node.density) if node.density is not None
+                   else registry.DEFAULT_DENSITY,
+                   float(node.block_density)
+                   if node.block_density is not None else None,
+                   sparse_ok,
+                   sidecar.block_shape if sidecar is not None else None)
+            return
         if not isinstance(node, dict):
             return
         keys = set(node)

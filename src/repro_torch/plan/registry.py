@@ -10,13 +10,14 @@ reference's names, ``selectable`` and ``serve_via_registry`` flags, cost
 formulas and gates, so a plan compiled by either package means the same in
 both.
 
-Lowerings: ``tsar_mxu`` runs ``ops.tsar_matmul`` and ``tsar_sparse_padded``
+A frozen layer is a ``core.bitlinear.FrozenBitLinear`` or a packed-param
+dict (``layers.pack_linear`` output, one layer of a stacked tree); ``_leaf``
+reads either.  Lowerings: ``tsar_mxu`` runs ``ops.tsar_matmul``,
+``tsar_lut`` ``ops.tsar_lut_gemv``, ``tsar_sparse`` ``ops.tsar_sparse_matmul``
+on the compacted sidecar and ``tsar_sparse_padded``
 ``ops.tsar_sparse_padded_matmul`` (hand-written CUDA kernels on a GPU, their
 plain versions on the CPU); ``dense`` and ``memory_lut`` are plain PyTorch,
-as the reference computes them outside any Pallas kernel; ``tsar_lut`` and
-the compacted ``tsar_sparse`` raise until the ``FrozenBitLinear`` /
-``apply_frozen`` slice ports their kernels (the serving step never lowers
-them).
+as the reference computes them outside any Pallas kernel.
 
 Import-graph note: this module sits below ``repro_torch.core.dataflow`` and
 the kernels, which are imported lazily inside methods.
@@ -46,30 +47,38 @@ def _hw():
     return hw
 
 
-# A frozen layer here is a packed-param dict (``layers.pack_linear`` output,
-# one layer of a stacked tree).  ``FrozenBitLinear`` objects come with the
-# ``core/bitlinear`` slice.
-
-def has_planes(frozen: dict) -> bool:
-    # Stacked plane dicts are sliced per layer before lower().
-    return ("sign" in frozen and "zero" in frozen
-            and getattr(frozen["sign"], "ndim", 0) == 2)
+def _leaf(frozen, key: str):
+    """A ``FrozenBitLinear`` field or a packed-param dict leaf (None when
+    absent)."""
+    if isinstance(frozen, dict):
+        return frozen.get(key)
+    return getattr(frozen, key, None)
 
 
-def _packed_of(frozen: dict, x):
-    """The layer's TernaryWeights, rebuilt from the planes with the true K
-    taken from the activations (planes store ceil(K/8)*8)."""
+def has_planes(frozen) -> bool:
+    if isinstance(frozen, dict):
+        # Stacked plane dicts are sliced per layer before lower().
+        return ("sign" in frozen and "zero" in frozen
+                and getattr(frozen["sign"], "ndim", 0) == 2)
+    return _leaf(frozen, "packed") is not None
+
+
+def _packed_of(frozen, x):
+    """The layer's TernaryWeights: a ``FrozenBitLinear`` carries it; a
+    packed dict rebuilds it from the planes with the true K taken from the
+    activations (planes store ceil(K/8)*8)."""
+    packed = _leaf(frozen, "packed")
+    if packed is not None:
+        return packed
     from repro_torch.core import ternary
 
     return ternary.TernaryWeights(frozen["sign"], frozen["zero"], frozen["scale"],
                                   (x.shape[-1], frozen["sign"].shape[-1]))
 
 
-def _next_slice(kernel: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{kernel}: its Hopper kernel is not ported yet; it comes with the "
-        "FrozenBitLinear / apply_frozen (core/bitlinear) slice of the port. "
-        "The serving step never lowers it.")
+def _c_of(frozen) -> int:
+    c = _leaf(frozen, "c")
+    return 4 if c is None else c
 
 
 def _row_tile(n: int) -> int:
@@ -175,13 +184,22 @@ class TsarLUT:
         return compute, bytes_moved / hw.HBM_BW
 
     def supports(self, frozen):
-        return frozen.get("idx_pos") is not None
+        return _leaf(frozen, "idx_pos") is not None
 
     def tiles(self, n, k, m, c=4):
-        return ()
+        from repro_torch.kernels import tsar_lut
+
+        bn, cb, _, _ = tsar_lut.launch_config(n, -(-k // c), m, c, sm_count=1)
+        return (bn, cb, tsar_lut._TILE_COLS)
 
     def lower(self, frozen, x, *, lp=None):
-        raise _next_slice(self.name)
+        from repro_torch.kernels import ops
+
+        idx_pos = _leaf(frozen, "idx_pos")
+        if idx_pos is None:
+            raise ValueError("layer was frozen without LUT indices (idx_pos)")
+        return ops.tsar_lut_gemv(x, idx_pos, _leaf(frozen, "idx_zero"),
+                                 _packed_of(frozen, x).scale, c=_c_of(frozen))
 
 
 class TsarSparse:
@@ -218,20 +236,29 @@ class TsarSparse:
         return compute, bytes_moved / hw.HBM_BW
 
     def supports(self, frozen):
-        return frozen.get("sparse") is not None
+        return _leaf(frozen, "sparse") is not None
 
     def tiles(self, n, k, m, c=4):
         # bk/bm are fixed by the format; the row tile is the CUDA kernel's.
         return (_row_tile(n),) + SPARSE_BLOCK
 
     def lower(self, frozen, x, *, lp=None):
-        raise _next_slice(self.name)
+        from repro_torch.kernels import ops
+
+        sparse = _leaf(frozen, "sparse")
+        if sparse is None:
+            raise ValueError("layer was frozen without a block-sparse sidecar")
+        return ops.tsar_sparse_matmul(x, sparse)
 
 
-def _padded_of(frozen: dict, x):
-    """The layer's PaddedBlockSparseTernary, rebuilt from the ``sp_*`` leaves
-    with the true K/M from the activations and the scales (the pools store
-    only the block-padded grid)."""
+def _padded_of(frozen, x):
+    """The layer's PaddedBlockSparseTernary: a ``FrozenBitLinear`` carries
+    it; a packed dict rebuilds it from the ``sp_*`` leaves with the true K/M
+    from the activations and the scales (the pools store only the
+    block-padded grid)."""
+    padded = _leaf(frozen, "padded")
+    if padded is not None:
+        return padded
     from repro_torch.core import ternary
     from repro_torch.sparse import format as sparse_format
 
@@ -273,8 +300,10 @@ class TsarSparsePadded(TsarSparse):
         return comp, mem
 
     def supports(self, frozen):
-        sp = frozen.get("sp_sign")
-        return sp is not None and getattr(sp, "ndim", 0) == 3
+        if isinstance(frozen, dict):
+            sp = frozen.get("sp_sign")
+            return sp is not None and getattr(sp, "ndim", 0) == 3
+        return _leaf(frozen, "padded") is not None
 
     def lower(self, frozen, x, *, lp=None):
         from repro_torch.kernels import ops
@@ -313,7 +342,7 @@ class MemoryLUT:
         from repro_torch.core import lut, ternary
 
         packed = _packed_of(frozen, x)
-        c = 4                     # the reference's default LUT block
+        c = _c_of(frozen)
         x32 = x.to(torch.float32)
         t = ternary.unpack(packed)
         pad = (-t.shape[0]) % c   # ragged K: zero channels x zero weights = 0
@@ -380,6 +409,11 @@ def names() -> tuple[str, ...]:
 
 def selectable_names() -> tuple[str, ...]:
     return tuple(n for n in names() if _REGISTRY[n].selectable)
+
+
+def available(frozen) -> tuple[str, ...]:
+    """Kernel names whose encodings are present on this frozen layer."""
+    return tuple(n for n in names() if _REGISTRY[n].supports(frozen))
 
 
 def estimate_block_density(density: float, block_shape: tuple = SPARSE_BLOCK) -> float:

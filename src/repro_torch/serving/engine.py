@@ -26,7 +26,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from repro_torch.core import ternary
+from repro_torch.core import bitlinear, ternary
 from repro_torch.device import resolve_device
 from repro_torch.models import layers, model_zoo
 from repro_torch.obs import NULL_TRACER, MetricsRegistry, StatsView
@@ -36,12 +36,6 @@ from repro_torch.serving.kv_cache import PagedKVCache
 from repro_torch.serving.scheduler import ChunkedScheduler, Preempt, SlotState
 from repro_torch.sparse import format as sparse_format
 from repro_torch.sparse import stats as sparse_stats
-
-# Freeze emits padded pools only for stacks whose mean live-block fraction
-# is below this (the reference's ``core.bitlinear.SPARSE_SIDE_CAR_THRESHOLD``):
-# a notch above the ~0.9 dispatch break-even, so borderline layers keep the
-# option while clearly dense stacks carry no dead pool bytes.
-SPARSE_SIDE_CAR_THRESHOLD = 0.95
 
 
 @dataclass
@@ -108,11 +102,11 @@ def _sparse_prepass(w: torch.Tensor, block_shape: tuple, max_live: int | None = 
     """Sizing pass for ``sparse="auto"``: the ``pack_linear`` kwargs that
     emit a padded pool sized to the stack-wide maxima, when the mean
     live-block fraction over the stack is below
-    ``SPARSE_SIDE_CAR_THRESHOLD``; None when the stack is too dense.
+    ``bitlinear.SPARSE_SIDE_CAR_THRESHOLD``; None when the stack is too dense.
     Caller-supplied ``max_live``/``s_steps`` act as floors (uniform ``sp_*``
     shapes across re-freezes for a saved plan)."""
     measured_live, measured_steps, mean_bd = _measure_stack(w, block_shape)
-    if mean_bd >= SPARSE_SIDE_CAR_THRESHOLD:
+    if mean_bd >= bitlinear.SPARSE_SIDE_CAR_THRESHOLD:
         return None
     return {"sparse": True, "block_shape": block_shape,
             "max_live": max(measured_live, max_live or 0, 1),
@@ -134,7 +128,7 @@ def freeze_params(params, *, sparse: str | bool = "auto",
 
     * ``"auto"`` (default): a pre-pass measures each stack's block occupancy
       and emits pools only where the mean live-block fraction is below
-      ``SPARSE_SIDE_CAR_THRESHOLD``, sized to the measured stack-wide
+      ``bitlinear.SPARSE_SIDE_CAR_THRESHOLD``, sized to the measured stack-wide
       ``max_live``/``s_steps`` (caller values act as floors);
     * ``True``: always emit pools, padded to ``max_live``/``s_steps`` (the
       full grid and K/bk when None); bounds that do not hold raise;

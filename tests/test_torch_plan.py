@@ -248,8 +248,11 @@ def test_plain_lowerings_match_reference(name, exact):
 
 @pytest.mark.parametrize("name", ["tsar_lut", "tsar_sparse"])
 def test_unported_lowerings_raise(name):
+    # Both kernels are ported; a layer without their encodings (a packed
+    # dict has no LUT indices and no compacted pool) still raises.
     x, _, tdict = _layer()
-    with pytest.raises(NotImplementedError, match="bitlinear"):
+    assert not registry.get(name).supports(tdict)
+    with pytest.raises(ValueError, match="frozen without"):
         registry.get(name).lower(tdict, torch.from_numpy(x))
 
 
@@ -259,4 +262,8 @@ def test_tiles_are_the_cuda_launch_picks():
     assert registry.get("tsar_mxu").tiles(4, 2560, 2560) == (4, 256, 64)
     assert registry.get("tsar_mxu").tiles(20, 2560, 2560) == (tsar_matmul.row_tile(20), 256, 64)
     assert registry.get("tsar_sparse_padded").tiles(33, 2560, 2560) == (32, 256, 256)
+    assert registry.get("tsar_sparse").tiles(4, 2560, 2560) == (4, 256, 256)
+    # (rows per CTA, blocks per shared-memory LUT chunk, columns per CTA)
+    assert registry.get("tsar_lut").tiles(4, 2560, 2560) == (4, 64, 256)
+    assert registry.get("tsar_lut").tiles(20, 2560, 2560, c=2) == (20, 4096 // (20 << 2), 256)
     assert registry.get("dense").tiles(4, 128, 128) == ()
