@@ -12,11 +12,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``nvcc`` per source, started together) and print the build time and
    ``nvcc``'s register report;
 3. ``tsar_matmul`` kernel phase: the kernel against its plain PyTorch
-   version at the eight (N, K, M) shapes of the ``bitnet-2b-4t`` serving step
-   and at ragged shapes, required ``torch.equal``; CUDA-event times (median
-   of 21 CUDA-graph replays, each cycling over enough weight copies to
-   defeat the 50 MB L2) beside the bound and ``torch._int_mm`` on
-   pre-decoded int8 weights;
+   version at the eight (N, K, M) shapes of the ``bitnet-2b-4t`` serving step,
+   at N in {1, 8, 9, 32, 33} x 2560 x 6912, at 20 x 2576 x 2576 and
+   4 x 6928 x 80 (TMA boxes partly past the matrix), at 33 x 200 x 132 and
+   at ragged shapes, required ``torch.equal``; CUDA-event times (median of 21
+   CUDA-graph replays, each cycling over enough weight copies to defeat the
+   50 MB L2) beside the bound and ``torch._int_mm`` on pre-decoded int8
+   weights; the launch structure: ``torch.profiler`` over 4 eager calls at
+   4 x 2560 x 6912 must show exactly 4 device kernels and no memset;
 4. ``tsar_sparse_padded`` kernel phase: the same eight shapes on padded
    pools with half of the (256, 256) blocks dead (numpy seed 0), plus
    ragged, empty-strip and all-zero-activation cases, required
@@ -260,7 +263,24 @@ def kernel_phase(torch, cfg) -> dict:
                   f"plain {plain_ms * 1e3:.1f} us | _int_mm int8 {library_ms * 1e3:.2f} us",
                   flush=True)
             del planes, w8
-    # Ragged shapes go through the public wrapper (pads M to a multiple of 4).
+    # Edge shapes straight into the kernel: row counts around the 8-row
+    # n-tiles and the 32-row CTA tile at one full-width shape; TMA boxes
+    # partly past the matrix (M % 64 != 0, Kp % 32 != 0, both multiples of
+    # 16); K and M not multiples of 16 (padded by the wrapper).
+    edges = [(n, 2560, 6912) for n in (1, 8, 9, 32, 33)]
+    edges += [(20, 2576, 2576), (4, 6928, 80), (33, 200, 132)]
+    for n, k, m in edges:
+        a_q = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+        a_scale = torch.rand((n, 1), generator=gen, device=dev) + 0.01
+        w_scale = torch.rand((m,), generator=gen, device=dev) + 0.01
+        s0, z0 = (torch.randint(0, 256, (k // 8, m), generator=gen, device=dev,
+                                dtype=torch.uint8) for _ in range(2))
+        got = tm.tsar_matmul_packed(a_q, a_scale, s0, z0, w_scale)
+        want = tm.tsar_matmul_plain(a_q, a_scale, s0, z0, w_scale)
+        _require(torch.equal(got, want), f"tsar_matmul != plain at edge N={n} K={k} M={m}")
+        picks = tuple(tm.launch_config(n, k, m, tm._sm_count(0)))
+        print(f"tsar_matmul edge N={n} K={k} M={m} {picks}: equal", flush=True)
+    # Ragged shapes through the public entry point (K padded to 8 there).
     for n in (1, 33):
         k, m = 200, 130
         x = torch.randn((n, k), generator=gen, device=dev)
@@ -271,7 +291,41 @@ def kernel_phase(torch, cfg) -> dict:
         _require(got.shape == (n, m), f"ragged output shape {tuple(got.shape)}")
         _require(torch.equal(got, want), f"tsar_matmul != plain at ragged N={n}")
         print(f"tsar_matmul ragged N={n} K={k} M={m}: equal", flush=True)
+    launch_structure(torch)
     return {"rows": rows, "max_abs_err": max_err}
+
+
+def launch_structure(torch, calls: int = 4) -> None:
+    """torch.profiler over ``calls`` eager calls at N=4 x 2560 x 6912: the
+    device must run exactly one kernel per call (the cluster launch) and no
+    memset."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import tsar_matmul as tm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n, k, m = 4, 2560, 6912
+    a_q = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+    a_scale = torch.rand((n, 1), generator=gen, device=dev) + 0.01
+    w_scale = torch.rand((m,), generator=gen, device=dev) + 0.01
+    s0, z0 = (torch.randint(0, 256, (k // 8, m), generator=gen, device=dev, dtype=torch.uint8)
+              for _ in range(2))
+    tm.tsar_matmul_packed(a_q, a_scale, s0, z0, w_scale)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            tm.tsar_matmul_packed(a_q, a_scale, s0, z0, w_scale)
+        torch.cuda.synchronize()
+    device = [e.name for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [name for name in device if "tsar_matmul_kernel" in name]
+    memsets = [name for name in device if "memset" in name.lower()]
+    _require(len(kernels) == calls and len(device) == calls and not memsets,
+             f"launch structure: {calls} calls ran {len(device)} device ops "
+             f"({len(kernels)} tsar_matmul kernels, {len(memsets)} memsets): {device}")
+    print(f"tsar_matmul launch structure: {calls} calls -> {len(kernels)} device kernels "
+          f"({kernels[0][:60]}...), 0 memsets", flush=True)
 
 
 def sparse_kernel_phase(torch, cfg) -> dict:

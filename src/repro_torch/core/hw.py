@@ -3,8 +3,8 @@
 
 The reference holds TPU v5e constants; the port's planner costs kernels
 against the H100 SXM data sheet (dense rates, at the full 700 W power limit):
-989 TFLOP/s bf16, 1,979 TOP/s int8, 3.35 TB/s HBM3, and 228 KiB of shared
-memory per SM in place of the TPU's VMEM.  ``chip_smoke.py`` prints them
+989 TFLOP/s bf16, 1,979 TOP/s int8, 3.35 TB/s HBM3, 132 SMs, and 228 KiB of
+shared memory per SM in place of the TPU's VMEM.  ``chip_smoke.py`` prints them
 beside ``torch.cuda.get_device_properties(0)``.
 
 ``SPARSE_ISSUE_TAX`` and ``SPARSE_PAD_STEP_FRAC`` and the calibration API
@@ -20,6 +20,7 @@ PEAK_FLOPS_BF16 = 989e12       # FLOP/s, dense bf16 tensor cores
 PEAK_FLOPS_INT8 = 1979e12      # int8 ops/s, dense tensor cores
 HBM_BW = 3.35e12               # bytes/s
 SMEM_BYTES = 228 * 1024        # shared memory per SM
+SM_COUNT = 132                 # streaming multiprocessors
 
 # Issue-efficiency tax on the sparse kernels' live-block work (analytic
 # default; see module docstring).  Puts the break-even near 1/1.1 ~ 0.9 live

@@ -1,6 +1,6 @@
 // Pieces shared by the packed-ternary kernels (tsar_matmul.cu,
-// tsar_sparse.cu): the in-register 2-bit plane decode and the split-K
-// epilogue.  Each kernel library includes this header; the build hashes it
+// tsar_sparse.cu): the in-register 2-bit plane decode, the split-K
+// epilogue, and TMA / mbarrier / cluster barrier / int8 mma.sync wrappers.  Each kernel library includes this header; the build hashes it
 // with the source (repro_torch/kernels/_build.py), so editing it rebuilds both.
 #pragma once
 
@@ -44,6 +44,76 @@ inline void launch_epilogue(const int32_t* ws, const float* a_scale,
   const int blocks = static_cast<int>(
       (total + threads - 1) / threads < 4096 ? (total + threads - 1) / threads : 4096);
   epilogue_kernel<<<blocks, threads, 0, stream>>>(ws, a_scale, w_scale, out, n, m);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// mbarrier (sm_90) completing TMA copies: init with one arrival; per phase
+// one arrive.expect_tx of the phase's bytes, then the copies' complete_tx.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// TMA: the box of a 2-D tensor map at (x = inner coordinate, y) into this
+// CTA's shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* smem, const void* map, int x, int y,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(smem_addr(smem)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Thread-block cluster barrier in two halves (every thread of every CTA).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// c += a * b on the int8 tensor cores: a is 16x32 (row), b 32x8 (col), c
+// 16x8 int32, in the PTX fragment layouts of mma.m16n8k32.
+__device__ __forceinline__ void mma_s8_16832(int32_t (&c)[4], const int32_t (&a)[4],
+                                             int32_t b0, int32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 }  // namespace tsar

@@ -37,9 +37,11 @@ def tsar_matmul(x: torch.Tensor, tw: ternary.TernaryWeights, *,
     packed-ternary int8 matmul with in-register decode, fused dequant.
 
     ``dataflow`` keeps the reference's AP (activation-persistent) / OP
-    (output-persistent) argument.  The first CUDA kernel has one launch
-    order for both: every CTA covers all N rows of its column tile (N <= 32
-    on the serving path), so there is no n/m raster order to choose yet.
+    (output-persistent) argument, validated and otherwise unused: the CUDA
+    kernel is one launch of one wave in which each cluster of CTAs owns one
+    column tile and all N rows of it (up to 32; a grid over 32-row tiles
+    above), so every plane byte and every activation is read once per column
+    tile whatever the order, and there is no n/m raster order to choose.
     """
     if dataflow not in DATAFLOWS:
         raise ValueError(f"dataflow must be AP or OP, got {dataflow!r}")
@@ -50,14 +52,11 @@ def tsar_matmul(x: torch.Tensor, tw: ternary.TernaryWeights, *,
     x2 = x.reshape(-1, k).to(torch.float32)
     a_q, a_scale = ternary.quantize_activations(x2)
     # Padded K columns are zero activations, so whatever the plane tail
-    # decodes to contributes nothing; padded M columns are sliced off.
+    # decodes to contributes nothing (the kernel's wrapper pads further).
     a_q = _pad_to(a_q, 1, 8)
-    sign = _pad_to(tw.sign_plane, 1, 4)
-    zero = _pad_to(tw.zero_plane, 1, 4)
-    wsc = _pad_to(tw.scale, 0, 4)
-    y = _mxu_kernel.tsar_matmul_packed(a_q.contiguous(), a_scale, sign.contiguous(),
-                                       zero.contiguous(), wsc.contiguous())
-    return y[:, :m].reshape(lead + (m,))
+    y = _mxu_kernel.tsar_matmul_packed(a_q.contiguous(), a_scale, tw.sign_plane.contiguous(),
+                                       tw.zero_plane.contiguous(), tw.scale.contiguous())
+    return y.reshape(lead + (m,))
 
 
 def tsar_sparse_matmul(x: torch.Tensor, bst) -> torch.Tensor:

@@ -7,9 +7,14 @@ Replaces ``src/repro/kernels/tsar_matmul.py::tsar_matmul_packed`` (the
 
 What bounds it: the serving step calls it at N = 4 (pure decode) or 20
 (steps carrying prefill) rows, so it is bound by the 2-bit plane bytes,
-K*M/4.  The kernel reads each plane byte once, decodes it to int8 weights in
-registers and accumulates with ``__dp4a``; no int8 weight matrix ever reaches
-device memory.  See the source for the launch layout.
+K*M/4.  One call is one thread-block-cluster launch: the K splits of a
+column tile are the CTAs of one cluster and sum their int32 partials through
+distributed shared memory, so there is no workspace, memset or epilogue
+kernel.  Each CTA copies its planes and activations into shared memory with
+TMA, all stages requested at once, and
+decodes the planes in registers into the A operand of int8 ``mma.sync``; no
+int8 weight matrix ever reaches device memory.  See the source for the
+layout; :func:`launch_config` picks the tiles.
 
 On a CPU tensor :func:`tsar_matmul_packed` computes the plain version; on a
 CUDA tensor it launches the kernel or raises.  ``LAUNCHES`` counts the
@@ -20,17 +25,29 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import ternary
 
 # Launch counter; chip_smoke.py zeroes it before driving the serving path.
 LAUNCHES = {"tsar_matmul": 0}
 
-_COLS_PER_CTA = 64       # kBM in the CUDA source
-_K_CHUNK = 256           # kKChunk in the CUDA source
-_BN_CHOICES = (4, 8, 12, 16, 20, 24, 28, 32)   # row tiles compiled in the source
+_BN_CHOICES = (4, 8, 12, 16, 20, 24, 28, 32)   # row tiles of tsar_sparse.cu, tsar_lut.cu
+# Constants of the CUDA source (csrc/tsar_matmul.cu).
+_COLS_PER_CTA = 64       # kBM
+_K_STEP = 32             # kKStep: k per mma, the split granule
+_ALIGN = 16              # bytes: TMA boxes start on 16-byte aligned rows
+_WARPS = 8               # kWarps
+_INBOX_BYTES = (2048 + 1024) * 4   # kInbox
+_MAX_STAGE_STEPS = 64    # a plane TMA box has at most 256 rows
+# Launch picks.
+_SMEM_BUDGET = 228 * 1024 // 2 - 1024   # half an SM, less the runtime's 1 KiB per CTA
+_MAX_CLUSTER = 8         # portable cluster size
+_STAGES = 4              # ring stages, all issued before the first is consumed
+_MIN_STAGE_STEPS = 8     # fewer stages for short k-ranges
 
 
 def tsar_matmul_plain(a_q: torch.Tensor, a_scale: torch.Tensor,
@@ -52,10 +69,11 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-# C signature of tsar_matmul_packed: 7 pointers (a_q, a_scale, sign, zero,
-# w_scale, out, workspace), 5 ints (n, kp, m, bn, splitk), the stream.
-_PROTO = ctypes.CFUNCTYPE(ctypes.c_int, *([ctypes.c_void_p] * 7),
-                          *([ctypes.c_int] * 5), ctypes.c_void_p)
+# C signature of tsar_matmul_packed: 6 pointers (a_q, a_scale, sign, zero,
+# w_scale, out), 7 ints (n, kp, m, splits, n_tiles, stages, stage_steps),
+# the stream.
+_PROTO = ctypes.CFUNCTYPE(ctypes.c_int, *([ctypes.c_void_p] * 6),
+                          *([ctypes.c_int] * 7), ctypes.c_void_p)
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,15 +89,57 @@ def row_tile(n: int) -> int:
     return next((b for b in _BN_CHOICES if n <= b), _BN_CHOICES[-1])
 
 
-def launch_config(n: int, kp: int, m: int, sm_count: int) -> tuple[int, int]:
-    """(rows per CTA, K splits) for an (n, kp) x (kp, m) problem: the row
-    tile of :func:`row_tile` and enough K splits for about two CTAs per SM."""
-    bn = row_tile(n)
-    tiles = -(-m // _COLS_PER_CTA) * -(-n // bn)
-    chunks = -(-kp // _K_CHUNK)
-    split = min(chunks, max(1, -(-2 * sm_count // tiles)))
-    per = -(-chunks // split)
-    return bn, -(-chunks // per)
+class LaunchConfig(NamedTuple):
+    """The CUDA kernel's picks for one call (see :func:`launch_config`)."""
+
+    bm: int            # output columns per CTA
+    splits: int        # K splits = CTAs of one cluster (1..8)
+    n_tiles: int       # 8-row mma n-tiles per CTA (1..4; N > 32 adds grid rows)
+    stages: int        # shared-memory ring stages
+    stage_steps: int   # 32-k steps per stage
+
+
+def smem_bytes(n_tiles: int, stages: int, stage_steps: int) -> int:
+    """Dynamic shared memory of one CTA (``layout`` in the CUDA source):
+    1024 bytes of mbarriers and scales, the 12 KiB inbox of the cluster
+    reduction, then ``stages`` ring stages (activation boxes of 8*n_tiles
+    rows x 128 k bytes, then two planes of stage_steps*4 byte rows x 64
+    columns, rounded up to 1024 bytes) or, once they are consumed, the 8
+    warps' int32 partial tiles (rows of 65 words), whichever is larger, and
+    1024 bytes of alignment slack."""
+    npad = 8 * n_tiles
+    boxes = -(-stage_steps * _K_STEP // 128)
+    stage = -(-(boxes * npad * 128 + 2 * stage_steps * (_K_STEP // 8) * _COLS_PER_CTA)
+              // 1024) * 1024
+    return (1024 + _INBOX_BYTES + max(stages * stage, _WARPS * npad * (_COLS_PER_CTA + 1) * 4)
+            + 1024)
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_config(n: int, kp: int, m: int, sm_count: int) -> LaunchConfig:
+    """Tiles for an (n, kp) x (kp, m) problem.
+
+    One wave of at most one CTA per SM: the column tiles (x row tiles of 32
+    for n > 32) times the cluster size stay within ``sm_count``, with as
+    many K splits (at most 8, each at least one 32-k step) as that allows.
+    Each CTA's k-range is cut into at most 4 ring stages of at least 8 steps,
+    all requested at once, within half an SM's shared memory (so that the
+    scheduler can always place a cluster on whichever SMs are free); when
+    they do not fit, the stages shrink and the ring turns over.  Padding
+    ``kp`` or ``m`` to a multiple of 16 does not change the picks.
+    """
+    n_tiles = -(-min(n, 32) // 8)
+    steps = -(-kp // _K_STEP)
+    tiles = -(-m // _COLS_PER_CTA) * -(-n // 32)
+    splits = max(1, min(_MAX_CLUSTER, steps, sm_count // tiles))
+    per = -(-steps // splits)
+    splits = -(-steps // per)                 # no empty split
+    stages = min(_STAGES, -(-per // _MIN_STAGE_STEPS))
+    stage_steps = min(_MAX_STAGE_STEPS, -(-per // stages))
+    while stage_steps > 1 and smem_bytes(n_tiles, stages, stage_steps) > _SMEM_BUDGET:
+        stage_steps -= 1
+    stages = min(stages, -(-per // stage_steps))
+    return LaunchConfig(_COLS_PER_CTA, splits, n_tiles, stages, stage_steps)
 
 
 def _check(a_q, a_scale, sign_plane, zero_plane, w_scale) -> None:
@@ -109,40 +169,55 @@ def _check(a_q, a_scale, sign_plane, zero_plane, w_scale) -> None:
         raise ValueError(f"w_scale must be ({m},), got {tuple(w_scale.shape)}")
 
 
+def pad_for_tma(a_q: torch.Tensor, sign_plane: torch.Tensor, zero_plane: torch.Tensor,
+                w_scale: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Kp and M padded to multiples of 16, the row alignment of the
+    kernel's TMA copies: zero activations meet the padded plane rows (which
+    decode to +1) and the padded columns are cut off the output, so the
+    product's first M columns are unchanged.  Returns the inputs themselves
+    when no padding is needed."""
+    dk, dm = -a_q.shape[1] % _ALIGN, -sign_plane.shape[1] % _ALIGN
+    if dk or dm:
+        a_q = F.pad(a_q, (0, dk))
+        sign_plane = F.pad(sign_plane, (0, dm, 0, dk // 8))
+        zero_plane = F.pad(zero_plane, (0, dm, 0, dk // 8))
+        w_scale = F.pad(w_scale, (0, dm))
+    return a_q, sign_plane, zero_plane, w_scale
+
+
 def tsar_matmul_packed(a_q: torch.Tensor, a_scale: torch.Tensor,
                        sign_plane: torch.Tensor, zero_plane: torch.Tensor,
                        w_scale: torch.Tensor) -> torch.Tensor:
     """(N, Kp) int8 x packed ternary (Kp/8, M) planes -> (N, M) float32.
 
     ``a_scale`` is (N, 1) float32, ``w_scale`` (M,) float32.  On CUDA the
-    kernel needs ``M % 4 == 0`` and 4-byte-aligned planes (``ops`` pads M).
+    kernel's TMA copies need ``a_q`` and the planes 16-byte aligned (a
+    ``ValueError`` otherwise) and Kp and M multiples of 16: other shapes are
+    padded here (:func:`pad_for_tma`).  The serving shapes copy nothing.
     """
     _check(a_q, a_scale, sign_plane, zero_plane, w_scale)
     if a_q.device.type == "cpu":
         return tsar_matmul_plain(a_q, a_scale, sign_plane, zero_plane, w_scale)
     if a_q.device.type != "cuda":
         raise ValueError(f"unsupported device {a_q.device}")
-    n, kp = a_q.shape
-    m = sign_plane.shape[1]
-    if m % 4:
-        raise ValueError(f"the CUDA kernel needs M % 4 == 0, got M={m}")
-    for name, t in (("sign_plane", sign_plane), ("zero_plane", zero_plane)):
-        if t.data_ptr() % 4:
-            raise ValueError(f"{name} must be 4-byte aligned")
-    out = torch.empty((n, m), dtype=torch.float32, device=a_q.device)
+    n, m = a_q.shape[0], sign_plane.shape[1]
+    for name, t in (("a_q", a_q), ("sign_plane", sign_plane), ("zero_plane", zero_plane)):
+        if t.data_ptr() % _ALIGN:
+            raise ValueError(f"{name} must be {_ALIGN}-byte aligned for the CUDA kernel")
+    a_q, sign_plane, zero_plane, w_scale = pad_for_tma(a_q, sign_plane, zero_plane, w_scale)
+    kp, mp = a_q.shape[1], sign_plane.shape[1]
+    out = torch.empty((n, mp), dtype=torch.float32, device=a_q.device)
     if n == 0:
-        return out
+        return out[:, :m]
     index = a_q.device.index if a_q.device.index is not None else torch.cuda.current_device()
-    bn, split = launch_config(n, kp, m, _sm_count(index))
-    ws = (torch.empty((n, m), dtype=torch.int32, device=a_q.device)
-          if split > 1 else None)
+    cfg = launch_config(n, kp, mp, _sm_count(index))
     with torch.cuda.device(a_q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib()(a_q.data_ptr(), a_scale.data_ptr(), sign_plane.data_ptr(),
                      zero_plane.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
-                     None if ws is None else ws.data_ptr(),
-                     n, kp, m, bn, split, stream)
+                     n, kp, mp, cfg.splits, cfg.n_tiles, cfg.stages, cfg.stage_steps,
+                     stream)
     if err != 0:
         raise RuntimeError(f"tsar_matmul kernel launch failed: CUDA error {err}")
     LAUNCHES["tsar_matmul"] += 1
-    return out
+    return out if mp == m else out[:, :m].contiguous()

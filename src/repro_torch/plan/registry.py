@@ -150,7 +150,11 @@ class TsarMXU:
     def tiles(self, n, k, m, c=4):
         from repro_torch.kernels import tsar_matmul
 
-        return (_row_tile(n), tsar_matmul._K_CHUNK, tsar_matmul._COLS_PER_CTA)
+        # (rows per CTA, k per ring stage, columns per CTA): the picks on an
+        # H100's SM_COUNT SMs (a card with other SM counts launches other
+        # splits; padding K and M to the kernel's 16 changes nothing).
+        cfg = tsar_matmul.launch_config(n, k, m, _hw().SM_COUNT)
+        return (8 * cfg.n_tiles, cfg.stage_steps * tsar_matmul._K_STEP, cfg.bm)
 
     def lower(self, frozen, x, *, lp=None):
         from repro_torch.kernels import ops

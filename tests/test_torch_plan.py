@@ -257,10 +257,16 @@ def test_unported_lowerings_raise(name):
 
 
 def test_tiles_are_the_cuda_launch_picks():
+    from repro_torch.core import hw
     from repro_torch.kernels import tsar_matmul
 
-    assert registry.get("tsar_mxu").tiles(4, 2560, 2560) == (4, 256, 64)
-    assert registry.get("tsar_mxu").tiles(20, 2560, 2560) == (tsar_matmul.row_tile(20), 256, 64)
+    # (rows per CTA: whole 8-row n-tiles, k per ring stage, columns per CTA)
+    # of the cluster kernel's launch_config on an H100's 132 SMs.
+    assert registry.get("tsar_mxu").tiles(4, 2560, 2560) == (8, 224, 64)
+    cfg = tsar_matmul.launch_config(20, 2560, 2560, hw.SM_COUNT)
+    assert registry.get("tsar_mxu").tiles(20, 2560, 2560) == (8 * cfg.n_tiles,
+                                                               32 * cfg.stage_steps, cfg.bm)
+    assert registry.get("tsar_mxu").tiles(20, 2560, 2560) == (24, 224, 64)
     assert registry.get("tsar_sparse_padded").tiles(33, 2560, 2560) == (32, 256, 256)
     assert registry.get("tsar_sparse").tiles(4, 2560, 2560) == (4, 256, 256)
     # (rows per CTA, blocks per shared-memory LUT chunk, columns per CTA)

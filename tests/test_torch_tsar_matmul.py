@@ -114,12 +114,47 @@ def test_wrapper_rejects_malformed_inputs(bad):
 @pytest.mark.parametrize("n,k,m", [(4, 2560, 2560), (20, 2560, 640), (4, 6912, 2560),
                                    (20, 2560, 6912), (33, 512, 64), (1, 8, 4)])
 def test_launch_config_covers_k_without_empty_splits(n, k, m):
-    bn, split = tm.launch_config(n, k, m, sm_count=132)
-    assert bn >= min(n, 32) and bn % 4 == 0
-    chunks = -(-k // 256)
-    per = -(-chunks // split)
-    assert 1 <= split <= chunks
-    assert (split - 1) * per < chunks      # the last split still has work
+    cfg = tm.launch_config(n, k, m, sm_count=132)
+    assert cfg.bm == 64
+    # One cluster of 1..8 CTAs per output tile, all in one wave of CTAs.
+    tiles = -(-m // cfg.bm) * -(-n // 32)
+    assert 1 <= cfg.splits <= 8
+    assert tiles * cfg.splits <= 132 or cfg.splits == 1
+    # Split boundaries fall on the kernel's 32-k granule and every split
+    # has k: the last one starts inside K.
+    steps = -(-k // 32)
+    per = -(-steps // cfg.splits)
+    bounds = [i * per * 32 for i in range(cfg.splits)]
+    assert all(b % 32 == 0 for b in bounds) and bounds[-1] < k
+    # No ring stage without k, and the ring fits the shared-memory budget.
+    assert 1 <= cfg.stages <= 4 and 1 <= cfg.stage_steps <= 64
+    assert (cfg.stages - 1) * cfg.stage_steps < per
+    assert tm.smem_bytes(cfg.n_tiles, cfg.stages, cfg.stage_steps) <= tm._SMEM_BUDGET
+    # N is covered by whole 8-row n-tiles of one 32-row CTA tile.
+    assert 1 <= cfg.n_tiles <= 4
+    assert 8 * cfg.n_tiles >= min(n, 32) > 8 * (cfg.n_tiles - 1)
+
+
+@pytest.mark.parametrize("n,k,m", [(4, 2560, 2560), (33, 200, 130), (20, 2576, 2576),
+                                   (4, 6928, 80), (1, 8, 4)])
+def test_tma_padding_keeps_the_product(n, k, m):
+    """The CUDA wrapper pads Kp and M to 16 for TMA: the padded plane rows
+    decode to +1 and meet zero activations, the padded columns are cut off,
+    aligned shapes are not copied, and the launch picks do not change."""
+    rng = np.random.default_rng(n + k + m)
+    a_q = torch.from_numpy(rng.integers(-127, 128, (n, k), dtype=np.int8))
+    a_scale = torch.from_numpy(rng.random((n, 1), dtype=np.float32) + 0.01)
+    sign, zero = (torch.from_numpy(rng.integers(0, 256, (k // 8, m), dtype=np.uint8))
+                  for _ in range(2))
+    w_scale = torch.from_numpy(rng.random(m, dtype=np.float32) + 0.01)
+    padded = tm.pad_for_tma(a_q, sign, zero, w_scale)
+    pa, ps, pz, pw = padded
+    assert pa.shape[1] % 16 == 0 and ps.shape[1] % 16 == 0 and ps.shape == pz.shape
+    if k % 16 == 0 and m % 16 == 0:
+        assert all(p is q for p, q in zip(padded, (a_q, sign, zero, w_scale)))
+    want = tm.tsar_matmul_plain(a_q, a_scale, sign, zero, w_scale)
+    assert torch.equal(tm.tsar_matmul_plain(pa, a_scale, ps, pz, pw)[:, :m], want)
+    assert tm.launch_config(n, k, m, 132) == tm.launch_config(n, pa.shape[1], ps.shape[1], 132)
 
 
 @pytest.mark.gpu
@@ -127,7 +162,13 @@ def test_cuda_kernel_equals_plain_version():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
     dev = torch.device("cuda")
-    for n, k, m in [(4, 2560, 6912), (20, 6912, 2560), (33, 200, 132)]:
+    shapes = [(4, 2560, 6912), (20, 6912, 2560), (33, 200, 132), (33, 200, 130)]
+    # Row counts around the 8-row n-tiles and the 32-row CTA tile.
+    shapes += [(n, 2560, 6912) for n in (1, 8, 9, 32, 33)]
+    # TMA boxes partly past the matrix: M % 64 != 0 and Kp % 32 != 0 (both
+    # multiples of 16, so nothing is padded).
+    shapes += [(20, 2576, 2576), (4, 6928, 80)]
+    for n, k, m in shapes:
         x, t, scale = _problem(n, k, m)
         tw = ternary.pack(torch.from_numpy(t).to(dev), torch.from_numpy(scale).to(dev))
         got = ops.tsar_matmul(torch.from_numpy(x).to(dev), tw)
