@@ -29,8 +29,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
 5. ``tsar_lut`` kernel phase: the four projection shapes x N in {1, 4, 20},
    c = 4, float32 activations, indices from ``pack_indices`` (numpy seed
    0), within rtol 1e-4 / atol 2e-3 of the plain version and of the dense
-   product; c = 2 and ragged N/K/M; times beside the bound, the plain version
-   and one float32 ``torch.matmul`` (TF32 off) on the decoded ``t * scale``;
+   product, two calls on the same inputs ``torch.equal``; c in {1, 2, 5, 8}
+   at 4 x 2560 x 2560, ragged N/K/M, N in {1, 33} x 2600 x 2600 and
+   33 x 2598 x 200 at c = 3 (TMA boxes past the matrix, padded blocks and
+   columns); times beside the bound, the plain version and one float32
+   ``torch.matmul`` (TF32 off) on the decoded ``t * scale``; the launch
+   structure as for ``tsar_matmul`` (4 calls -> 4 device kernels, nothing
+   else);
 6. ``tsar_sparse`` (compacted pool) kernel phase: the four projection
    shapes x N in {1, 4, 20} on ``from_ternary`` pools with half of the
    (256, 256) blocks dead, required
@@ -291,41 +296,39 @@ def kernel_phase(torch, cfg) -> dict:
         _require(got.shape == (n, m), f"ragged output shape {tuple(got.shape)}")
         _require(torch.equal(got, want), f"tsar_matmul != plain at ragged N={n}")
         print(f"tsar_matmul ragged N={n} K={k} M={m}: equal", flush=True)
-    launch_structure(torch)
-    return {"rows": rows, "max_abs_err": max_err}
-
-
-def launch_structure(torch, calls: int = 4) -> None:
-    """torch.profiler over ``calls`` eager calls at N=4 x 2560 x 6912: the
-    device must run exactly one kernel per call (the cluster launch) and no
-    memset."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.kernels import tsar_matmul as tm
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(5)
     n, k, m = 4, 2560, 6912
     a_q = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
     a_scale = torch.rand((n, 1), generator=gen, device=dev) + 0.01
     w_scale = torch.rand((m,), generator=gen, device=dev) + 0.01
     s0, z0 = (torch.randint(0, 256, (k // 8, m), generator=gen, device=dev, dtype=torch.uint8)
               for _ in range(2))
-    tm.tsar_matmul_packed(a_q, a_scale, s0, z0, w_scale)
+    launch_structure(torch, "tsar_matmul",
+                     lambda: tm.tsar_matmul_packed(a_q, a_scale, s0, z0, w_scale))
+    return {"rows": rows, "max_abs_err": max_err}
+
+
+def launch_structure(torch, name: str, call, calls: int = 4) -> None:
+    """torch.profiler over ``calls`` eager calls of ``call`` (one wrapper
+    call of kernel ``name`` at N=4 x 2560 x 6912): the device must run
+    exactly one kernel per call (the cluster launch), ``<name>_kernel``, and
+    nothing else: no memset, no epilogue kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            tm.tsar_matmul_packed(a_q, a_scale, s0, z0, w_scale)
+            call()
         torch.cuda.synchronize()
     device = [e.name for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels = [name for name in device if "tsar_matmul_kernel" in name]
-    memsets = [name for name in device if "memset" in name.lower()]
+    kernels = [k for k in device if f"{name}_kernel" in k]
+    memsets = [k for k in device if "memset" in k.lower()]
     _require(len(kernels) == calls and len(device) == calls and not memsets,
              f"launch structure: {calls} calls ran {len(device)} device ops "
-             f"({len(kernels)} tsar_matmul kernels, {len(memsets)} memsets): {device}")
-    print(f"tsar_matmul launch structure: {calls} calls -> {len(kernels)} device kernels "
-          f"({kernels[0][:60]}...), 0 memsets", flush=True)
+             f"({len(kernels)} {name} kernels, {len(memsets)} memsets): {device}")
+    print(f"{name} launch structure: {calls} calls -> {len(kernels)} device kernels "
+          f"({kernels[0][:60]}...), 0 memsets, no other device op", flush=True)
 
 
 def sparse_kernel_phase(torch, cfg) -> dict:
@@ -468,6 +471,8 @@ def lut_kernel_phase(torch, cfg) -> dict:
             x = torch.from_numpy(rng.standard_normal((n, k), dtype=np.float32)).to(dev)
             got = tl.tsar_lut_gemv(x, ip, iz, w_scale, c=c)
             err = check(got, x, t, w_scale, ip, iz, c, f"N={n} K={k} M={m} c={c}")
+            _require(torch.equal(tl.tsar_lut_gemv(x, ip, iz, w_scale, c=c), got),
+                     f"tsar_lut N={n} K={k} M={m}: two calls on the same inputs differ")
             max_err = max(max_err, err)
             ms = time_graph(torch, [
                 (lambda p=p, z=z: tl.tsar_lut_gemv(x, p, z, w_scale, c=c)) for p, z in idx],
@@ -479,22 +484,33 @@ def lut_kernel_phase(torch, cfg) -> dict:
             rows[(n, k, m)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                                "bound_by": b_by, "library_ms": library_ms}
             print(f"tsar_lut N={n:2d} K={k} M={m} c={c}: within rtol 1e-4/atol 2e-3 "
-                  f"(max err {err:.3g}) | {ms * 1e3:.2f} us (bound {b_ms * 1e3:.2f} us, "
+                  f"(max err {err:.3g}), two calls equal | {ms * 1e3:.2f} us (bound {b_ms * 1e3:.2f} us, "
                   f"{b_by}; {b_ms / ms:.1%} of bound) | plain {plain_ms * 1e3:.1f} us | "
                   f"f32 torch.matmul {library_ms * 1e3:.2f} us", flush=True)
         del idx, wl, w
-    # c = 2 at a full-width shape and ragged N/K/M through the public wrapper
-    # (zero-pads K to blocks * c and M to a multiple of 4).
-    for n, k, m, cc in [(4, 2560, 2560, 2), (1, 132, 70, 4), (33, 132, 70, 4),
-                        (1, 132, 70, 2), (33, 132, 70, 2)]:
+    # Through the public wrapper: c in {1, 2, 5, 8} at a full-width shape;
+    # ragged N/K/M (ops zero-pads K to blocks * c, the kernel's wrapper pads
+    # blocks so that blocks * c % 4 == 0 and M to 16); N in {1, 33} x 2600 x
+    # 2600 (TMA boxes past the matrix in M and in the blocks, a second row
+    # tile) and 33 x 2598 x 200 at c = 3 (blocks padded, M padded).
+    edges = [(4, 2560, 2560, cc) for cc in (1, 2, 5, 8)]
+    edges += [(1, 132, 70, 4), (33, 132, 70, 4), (1, 132, 70, 2), (33, 132, 70, 2),
+              (1, 2600, 2600, 4), (33, 2600, 2600, 4), (33, 2598, 200, 3)]
+    for n, k, m, cc in edges:
         x, t, w_scale = problem(n, k, m)
         ip, iz = ternary.pack_indices(t, cc)
         got = ops.tsar_lut_gemv(x, ip, iz, w_scale, c=cc)
         _require(got.shape == (n, m), f"tsar_lut output shape {tuple(got.shape)}")
         err = check(got, x, t, w_scale, ip, iz, cc, f"N={n} K={k} M={m} c={cc}")
+        _require(torch.equal(ops.tsar_lut_gemv(x, ip, iz, w_scale, c=cc), got),
+                 f"tsar_lut N={n} K={k} M={m} c={cc}: two calls on the same inputs differ")
         max_err = max(max_err, err)
         print(f"tsar_lut N={n} K={k} M={m} c={cc}: within rtol 1e-4/atol 2e-3 "
-              f"(max err {err:.3g})", flush=True)
+              f"(max err {err:.3g}), two calls equal", flush=True)
+    n, k, m = 4, 2560, 6912
+    x, t, w_scale = problem(n, k, m)
+    ip, iz = ternary.pack_indices(t, c)
+    launch_structure(torch, "tsar_lut", lambda: tl.tsar_lut_gemv(x, ip, iz, w_scale, c=c))
     return {"rows": rows, "max_abs_err": max_err}
 
 

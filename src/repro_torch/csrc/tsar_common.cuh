@@ -1,10 +1,14 @@
-// Pieces shared by the packed-ternary kernels (tsar_matmul.cu,
-// tsar_sparse.cu): the in-register 2-bit plane decode, the split-K
-// epilogue, and TMA / mbarrier / cluster barrier / int8 mma.sync wrappers.  Each kernel library includes this header; the build hashes it
-// with the source (repro_torch/kernels/_build.py), so editing it rebuilds both.
+// Pieces shared by the hand-written kernels (tsar_matmul.cu, tsar_sparse.cu,
+// tsar_lut.cu): the in-register 2-bit plane decode, the split-K epilogue,
+// TMA / mbarrier / cluster barrier / int8 mma.sync wrappers, and the host-side
+// 2-D tensor-map encoder.  Each kernel library includes this header; the
+// build hashes it with the source (repro_torch/kernels/_build.py), so editing
+// it rebuilds all three.
 #pragma once
 
 #include <cstdint>
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 
 namespace tsar {
@@ -114,6 +118,42 @@ __device__ __forceinline__ void mma_s8_16832(int32_t (&c)[4], const int32_t (&a)
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// cuTensorMapEncodeTiled, looked up in libcuda through the CUDA runtime
+// (nothing to link).
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// A 2-D tensor map over (rows, cols) elements of `elem_bytes` each,
+// row-major at `base` with a row stride of `cols` elements, copied in boxes
+// of (box_rows, box_cols).  TMA fills zeros outside the matrix.
+inline bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                      const void* base, int rows, int cols, int box_rows, int box_cols,
+                      CUtensorMapSwizzle swizzle) {
+  auto encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace tsar

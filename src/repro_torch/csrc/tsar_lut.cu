@@ -15,206 +15,419 @@
 // repro_torch/core/lut.py::tsar_lut_matmul.  The TPU spells each gather as a
 // one-hot matmul on its matrix unit; here it is a real table lookup.
 //
-// What bounds it: the index bytes, 2 * blocks * M (twice the 2-bit planes at
-// c = 4), and at N = 20 the shared-memory lookups, 2 * N per (block,
-// column).  The design:
+// What bounds it: at N = 1 and 4 the index bytes, 2 * blocks * M (twice the
+// 2-bit planes at c = 4); at N = 20 the lookups, 2 * N * blocks * M, at 32
+// per SM clock at most (shuffles and shared-memory loads measured alike).
 //
-// * a CTA owns 256 output columns (4 adjacent ones per thread, so a warp
-//   reads 128 contiguous index bytes per array and block) and up to 32 rows;
-// * per chunk of blocks the CTA stages the activations in shared memory and
-//   builds S[r][b][0..2^c) there, so a warp's lookups (one block, one row)
-//   hit at most 2^c words, one bank each, or broadcast: no bank conflicts at
-//   c <= 5;
-// * each thread keeps its (rows x 4) sums in registers and loads the next
-//   block's index words while it gathers the current one's;
-// * K is split over gridDim.z; each split subtracts the row sums of its own
-//   k-range (the TPU kernel does so per tile) and writes an f32 workspace,
-//   which an epilogue sums in split order and scales: deterministic.
+// The design, against the five causes that held the first kernel back (two
+// warps per CTA, one 4-byte load in flight per thread, tables rebuilt
+// serially per column tile, a serial per-row gather, a workspace and an
+// epilogue node):
 //
-// wgmma, TMA and cp.async pipelining are left for a later change.
+// * One launch per call.  The K splits of a column tile are the CTAs of one
+//   thread-block cluster (gridDim.z = cluster size, 1..8).  Each CTA pushes
+//   each slice of its f32 partial tile into the shared memory of the CTA that
+//   owns the slice; after one cluster barrier the owner sums the partials in
+//   rank order, scales and writes out.  No workspace, memset or epilogue
+//   kernel, and the output is deterministic (every sum in a fixed order).
+// * Bytes in flight.  A CTA copies its index tiles (stage_blocks x 128
+//   columns, both arrays) and its activation rows (rt x stage_blocks*c
+//   floats) into a ring of shared-memory stages with TMA, one mbarrier per
+//   stage, and requests every stage before it consumes the first.  TMA needs
+//   16-byte aligned rows: the wrapper pads M to 16 and blocks so that
+//   blocks * c is a multiple of 4 (zero activations: any index adds 0).  TMA
+//   fills zeros past the matrix (index 0 meets S[0] = 0).
+// * Tables in registers, built once per warp, in parallel.  At c = 4 the 32
+//   lanes of a warp hold two blocks' 16-entry tables for one row, lane
+//   16*t + p holding S_{b+t}[p] (one 16-byte activation load and four FMAs);
+//   c <= 5 likewise with 32 / 2^c blocks per warp, c > 5 with 2^c / 32
+//   registers per lane.
+// * Gathers without a per-row serial loop.  Each lane owns 4 adjacent
+//   columns (one 32-bit index load per array and block) and reads S[idx] with
+//   __shfl_sync from the lane that holds it: all 32 columns of a warp in one
+//   instruction.  The 8 warps split the k-steps (and, above 16 rows, the rows
+//   into two groups); their partials are summed in warp order.  A warp of at
+//   most 4 rows interleaves their lookups.  The row sums come free:
+//   S_b[2^c - 1] is the sum of block b's activations.
+// * Enough lookups in flight.  One CTA's warps leave an SM's shuffle rate
+//   unused (a CTA takes as long alone on its SM as beside a second one), so
+//   two CTAs share an SM (at most 128 registers, half an SM's shared memory
+//   each) and launch_config spreads the work over one wave of up to 2 x SMs
+//   CTAs: column tiles x row tiles (rt rows each, fewer than N where that
+//   shortens a CTA's work) x K splits (clusters of 1, 2, 4 or 8).
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tsar_common.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 64;
-constexpr int kColsPerThread = 4;
-constexpr int kTileCols = kThreads * kColsPerThread;   // 256 columns per CTA
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kBM = 128;              // columns per CTA, 4 per lane
+constexpr int kMaxRows = 32;          // rows per CTA tile at most; more rows add grid rows
+constexpr int kMaxStages = 8;
+constexpr int kMaxSmem = 227 * 1024;
 
-template <int BN>
-__global__ void __launch_bounds__(kThreads)
-tsar_lut_kernel(const float* __restrict__ a,           // (N, blocks*c)
-                const uint8_t* __restrict__ idx_pos,   // (blocks, M)
-                const uint8_t* __restrict__ idx_zero,  // (blocks, M)
-                const float* __restrict__ w_scale,     // (M,)
-                float* __restrict__ out,               // (N, M)
-                float* __restrict__ ws,                // (splits, N, M) when split
-                int n, int blocks, int m, int c, int cb, int blocks_per_split) {
-  // Dynamic shared memory: lut[BN][cb][2^c], act[BN][cb*c], tot[BN].
-  extern __shared__ float smem[];
-  const int lut_w = 1 << c;
-  float* lut = smem;
-  float* act = lut + BN * cb * lut_w;
-  float* tot = act + BN * cb * c;
+__host__ __device__ constexpr int round128(int x) { return (x + 127) / 128 * 128; }
+
+// Offsets from a 128-byte-aligned base; the allocation carries 128 bytes of
+// slack to reach it.
+struct Layout {
+  int inbox;       // the peers' partials of this CTA's slice (rt * kBM + 32 floats: >= one
+                   // tile + cluster size - 1), after the mbarriers
+  int ring;
+  int idx_tile;    // bytes of one index tile in a stage: stage_blocks x kBM
+  int stage;       // idx_pos tile, idx_zero tile, activation box [rt][stage_blocks*c]
+  int total;       // the ring, or once consumed the warps' partial tiles over it
+};
+
+__host__ __device__ inline Layout layout(int c, int rt, int k_groups, int stages,
+                                         int stage_blocks) {
+  Layout l;
+  l.inbox = kMaxStages * 8;
+  l.ring = round128(l.inbox + (rt * kBM + 32) * 4);
+  l.idx_tile = round128(stage_blocks * kBM);
+  l.stage = 2 * l.idx_tile + round128(rt * stage_blocks * c * 4);
+  const int ring = stages * l.stage;
+  const int red = k_groups * rt * kBM * 4;
+  l.total = l.ring + (ring > red ? ring : red) + 128;
+  return l;
+}
+
+// Blocks whose tables one warp holds at once (kTables), and registers of
+// table per lane (kRegs): 32 lanes hold 32 entries per register.
+template <int C>
+struct Tables {
+  static constexpr int kEntries = 1 << C;
+  static constexpr int kTables = C <= 5 ? 32 / kEntries : 1;
+  static constexpr int kRegs = C <= 5 ? 1 : kEntries / 32;
+};
+
+// S[p] of the table whose register(s) `s` this warp holds (p already carries
+// the table's lane offset when kRegs == 1).
+template <int C>
+__device__ __forceinline__ float lookup(const float (&s)[Tables<C>::kRegs], uint32_t p) {
+  if constexpr (Tables<C>::kRegs == 1) {
+    return __shfl_sync(0xffffffffu, s[0], static_cast<int>(p));
+  } else {
+    float v = 0.f;
+#pragma unroll
+    for (int j = 0; j < Tables<C>::kRegs; ++j) {
+      const float x = __shfl_sync(0xffffffffu, s[j], static_cast<int>(p & 31u));
+      v = (p >> 5) == static_cast<uint32_t>(j) ? x : v;
+    }
+    return v;
+  }
+}
+
+template <int C, int RW>
+__global__ void __launch_bounds__(kThreads, 2)
+tsar_lut_kernel(const __grid_constant__ CUtensorMap pos_map,    // (blocks, Mp) uint8
+                const __grid_constant__ CUtensorMap zero_map,   // (blocks, Mp) uint8
+                const __grid_constant__ CUtensorMap act_map,    // (N, blocks*c) f32
+                const float* __restrict__ w_scale,  // (>= m,)
+                float* __restrict__ out,            // (N, m)
+                int n, int blocks, int m, int rt, int row_groups, int blocks_per_split,
+                int stages, int stage_blocks) {
+  using T = Tables<C>;
+  constexpr int kRows = RW <= 4 ? RW : 1;    // rows whose lookups a warp interleaves
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((128 - tsar::smem_addr(smem_raw) % 128) % 128);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int k_groups = kWarps / row_groups;
+  const Layout l = layout(C, rt, k_groups, stages, stage_blocks);
 
   const int tid = threadIdx.x;
-  const int n0 = blockIdx.y * BN;
-  const int rows = min(BN, n - n0);
-  const int col = blockIdx.x * kTileCols + tid * kColsPerThread;
-  const bool col_ok = col < m;                 // m % 4 == 0, so col + 3 < m too
-  const int b_begin = blockIdx.z * blocks_per_split;
-  const int b_end = min(b_begin + blocks_per_split, blocks);
-  const int k = blocks * c;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int kg = warp % k_groups;             // this warp's share of the k-steps
+  const int col0 = blockIdx.x * kBM;
+  const int row0 = blockIdx.y * rt;
+  const int rows_here = min(rt, n - row0);
+  const int group_rows = (rt + row_groups - 1) / row_groups;
+  const int r0 = (warp / k_groups) * group_rows;
+  const int my_rows = max(0, min(group_rows, rows_here - r0));   // <= RW
+  const int b_begin = rank * blocks_per_split;
+  const int my_blocks = max(0, min(blocks_per_split, blocks - b_begin));
+  const int my_steps = (my_blocks + T::kTables - 1) / T::kTables;
+  const int stage_steps = stage_blocks / T::kTables;
+  const int chunks = (my_blocks + stage_blocks - 1) / stage_blocks;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  uint8_t* ring = smem + l.ring;
+  const int act_row = stage_blocks * C;       // floats per staged activation row
 
-  if (tid < BN) tot[tid] = 0.f;
+  auto fill = [&](int ch) {
+    if (tid == 0) {
+      uint8_t* st = ring + (ch % stages) * l.stage;
+      uint64_t* bar = bars + ch % stages;
+      const int b0 = b_begin + ch * stage_blocks;
+      tsar::mbar_expect_tx(bar, 2 * stage_blocks * kBM + rt * act_row * 4);
+      tsar::tma_load_2d(st, &pos_map, col0, b0, bar);
+      tsar::tma_load_2d(st + l.idx_tile, &zero_map, col0, b0, bar);
+      tsar::tma_load_2d(st + 2 * l.idx_tile, &act_map, b0 * C, row0, bar);
+    }
+  };
+  // Cluster barrier phase 1 (arrive now, wait before the first remote
+  // store): every CTA of the cluster has started.
+  tsar::cluster_arrive_relaxed();
+  if (tid == 0) {
+    for (int b = 0; b < stages; ++b) tsar::mbar_init(bars + b, 1);
+    tsar::mbar_init_fence();
+  }
+  __syncthreads();
+  // Every stage of the ring is requested before the first is consumed.
+  const int first = min(stages, chunks);
+  for (int ch = 0; ch < first; ++ch) fill(ch);
 
-  float acc[BN][kColsPerThread];
+  // This lane's table entries: entry e = lane % 2^c of block lane / 2^c
+  // (kRegs == 1), or entries lane + 32 j of one block; bit i of e as 0 / 1.
+  const int tab = T::kRegs == 1 ? lane / T::kEntries : 0;
+  float bit[T::kRegs][C];
 #pragma unroll
-  for (int r = 0; r < BN; ++r)
+  for (int j = 0; j < T::kRegs; ++j) {
+    const int e = T::kRegs == 1 ? lane % T::kEntries : lane + 32 * j;
 #pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) acc[r][j] = 0.f;
+    for (int i = 0; i < C; ++i) bit[j][i] = static_cast<float>((e >> i) & 1);
+  }
+  // Index bytes are masked below 2^c; table t's lane offset is OR-ed into each.
+  constexpr uint32_t kIdxMask = (T::kEntries - 1) * 0x01010101u;
 
-  for (int b0 = b_begin; b0 < b_end; b0 += cb) {
-    const int nb = min(cb, b_end - b0);
-    const int kw = nb * c;                     // k values in this chunk
-    __syncthreads();
-    // Stage the (BN, kw) activation slice; rows past N are zero.
-    for (int i = tid; i < BN * kw; i += kThreads) {
-      const int r = i / kw;
-      const int j = i % kw;
-      act[r * cb * c + j] = r < rows ? a[(size_t)(n0 + r) * k + (size_t)b0 * c + j] : 0.f;
-    }
-    __syncthreads();
-    // TLUT: S[r][b][p] = sum_i bit_i(p) * a[r][b*c + i].
-    for (int i = tid; i < BN * nb * lut_w; i += kThreads) {
-      const int p = i % lut_w;
-      const int b = (i / lut_w) % nb;
-      const int r = i / (lut_w * nb);
-      const float* ab = act + r * cb * c + b * c;
-      float s = 0.f;
-      for (int bit = 0; bit < c; ++bit)
-        if ((p >> bit) & 1) s += ab[bit];
-      lut[(r * cb + b) * lut_w + p] = s;
-    }
-    // Running row sums over this CTA's k-range, in k order.
-    if (tid < rows) {
-      float s = tot[tid];
-      for (int j = 0; j < kw; ++j) s += act[tid * cb * c + j];
-      tot[tid] = s;
-    }
-    __syncthreads();
-    if (!col_ok) continue;
-    // TGEMV: gather and accumulate, the next block's index words in flight.
-    const size_t base = (size_t)b0 * m + col;
-    uint32_t pw = __ldg(reinterpret_cast<const uint32_t*>(idx_pos + base));
-    uint32_t zw = __ldg(reinterpret_cast<const uint32_t*>(idx_zero + base));
-    for (int b = 0; b < nb; ++b) {
-      uint32_t pw_next = 0, zw_next = 0;
-      if (b + 1 < nb) {
-        const size_t off = base + (size_t)(b + 1) * m;
-        pw_next = __ldg(reinterpret_cast<const uint32_t*>(idx_pos + off));
-        zw_next = __ldg(reinterpret_cast<const uint32_t*>(idx_zero + off));
+  float acc[RW][4];
+  float tot[RW];                  // running S[2^c - 1]: the row sums of this warp's blocks
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    tot[r] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
+  }
+
+  for (int ch = 0; ch < chunks; ++ch) {
+    tsar::mbar_wait(bars + ch % stages, (ch / stages) & 1);
+    const uint8_t* st = ring + (ch % stages) * l.stage;
+    const float* act = reinterpret_cast<const float*>(st + 2 * l.idx_tile);
+    const int steps = min(stage_steps, my_steps - ch * stage_steps);
+    for (int s = kg; s < steps; s += k_groups) {
+      uint32_t pw[T::kTables], zw[T::kTables];
+#pragma unroll
+      for (int t = 0; t < T::kTables; ++t) {
+        const int row = s * T::kTables + t;
+        const uint32_t off = T::kRegs == 1 ? t * T::kEntries * 0x01010101u : 0u;
+        pw[t] = (*reinterpret_cast<const uint32_t*>(st + row * kBM + 4 * lane) & kIdxMask) | off;
+        zw[t] = (*reinterpret_cast<const uint32_t*>(st + l.idx_tile + row * kBM + 4 * lane) &
+                 kIdxMask) | off;
       }
-      int ip[kColsPerThread], iz[kColsPerThread];
+      // Rows in groups of kRows, independent work for the shuffles to
+      // overlap; a group past the warp's last row repeats that row into
+      // accumulators that are never written out.
 #pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) {
-        ip[j] = ((pw >> (8 * j)) & 0xFFu) & (lut_w - 1);
-        iz[j] = ((zw >> (8 * j)) & 0xFFu) & (lut_w - 1);
-      }
+      for (int r = 0; r < RW; r += kRows) {
+        if (r >= my_rows) break;
+        float sv[kRows][T::kRegs];
 #pragma unroll
-      for (int r = 0; r < BN; ++r) {
-        if (r < rows) {
-          const float* s = lut + (r * cb + b) * lut_w;
+        for (int q = 0; q < kRows; ++q) {
+          // TLUT: this lane's entries of its block's table for one row.
+          const int row = r0 + min(r + q, my_rows - 1);
+          const float* a = act + row * act_row + (s * T::kTables + tab) * C;
+          float av[C];
+          if constexpr (C % 4 == 0) {
 #pragma unroll
-          for (int j = 0; j < kColsPerThread; ++j)
-            acc[r][j] += __fmaf_rn(2.f, s[ip[j]], s[iz[j]]);
+            for (int i = 0; i < C; i += 4) {
+              const float4 v = *reinterpret_cast<const float4*>(a + i);
+              av[i] = v.x; av[i + 1] = v.y; av[i + 2] = v.z; av[i + 3] = v.w;
+            }
+          } else {
+#pragma unroll
+            for (int i = 0; i < C; ++i) av[i] = a[i];
+          }
+#pragma unroll
+          for (int j = 0; j < T::kRegs; ++j) {
+            float v = bit[j][0] * av[0];
+#pragma unroll
+            for (int i = 1; i < C; ++i) v = __fmaf_rn(bit[j][i], av[i], v);
+            sv[q][j] = v;
+          }
+          tot[r + q] += sv[q][T::kRegs - 1];
         }
+        // TGEMV: every lane gathers its 4 columns from the warp's tables.
+#pragma unroll
+        for (int t = 0; t < T::kTables; ++t)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const uint32_t ip = (pw[t] >> (8 * j)) & 0xFFu;
+            const uint32_t iz = (zw[t] >> (8 * j)) & 0xFFu;
+#pragma unroll
+            for (int q = 0; q < kRows; ++q) {
+              const float sp = lookup<C>(sv[q], ip);
+              const float sz = lookup<C>(sv[q], iz);
+              acc[r + q][j] = __fmaf_rn(2.f, sp, acc[r + q][j]) + sz;
+            }
+          }
       }
-      pw = pw_next;
-      zw = zw_next;
+    }
+    if (ch + stages < chunks) {
+      __syncthreads();                        // stage ch % stages is consumed
+      fill(ch + stages);
     }
   }
 
-  if (!col_ok) return;
-  const bool split = gridDim.z > 1;
+  // Warp partials, less the warp's row sums, -> red[kg][row][col]; summed
+  // in warp order below.
+  __syncthreads();                            // every warp is done with the ring
+  float* red = reinterpret_cast<float*>(ring);
 #pragma unroll
-  for (int r = 0; r < BN; ++r) {
-    if (r >= rows) break;
-    const int row = n0 + r;
+  for (int r = 0; r < RW; ++r) {
+    if (r >= my_rows) break;
+    float sum = 0.f;
+    if constexpr (T::kRegs == 1) {
 #pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) {
-      const float v = acc[r][j] - tot[r];
-      if (split)
-        ws[((size_t)blockIdx.z * n + row) * m + col + j] = v;
-      else
-        out[(size_t)row * m + col + j] = v * w_scale[col + j];
+      for (int t = 0; t < T::kTables; ++t)
+        sum += __shfl_sync(0xffffffffu, tot[r], t * T::kEntries + T::kEntries - 1);
+    } else {
+      sum = __shfl_sync(0xffffffffu, tot[r], 31);
     }
+    *reinterpret_cast<float4*>(red + (kg * rt + r0 + r) * kBM + 4 * lane) =
+        make_float4(acc[r][0] - sum, acc[r][1] - sum, acc[r][2] - sum, acc[r][3] - sum);
+  }
+  __syncthreads();
+
+  // Split-K across the cluster: CTA `rank` finishes the slice
+  // [rank * per, (rank + 1) * per) of the tile (element e = row * kBM + col).
+  // Every CTA sums its warps' partials of each element and stores the sum
+  // into the owner's inbox through distributed shared memory; after one
+  // cluster barrier each owner sums its inbox in rank order and no CTA
+  // touches a peer again.  A cluster of one skips the inbox.
+  const int elems = rows_here * kBM;
+  const int per = (elems + csize - 1) / csize;
+  auto warp_sum = [&](int e) {
+    float v = 0.f;
+    for (int w = 0; w < k_groups; ++w) v += red[w * rt * kBM + e];
+    return v;
+  };
+  float* inbox = reinterpret_cast<float*>(smem + l.inbox);
+  tsar::cluster_wait();
+  if (csize > 1) {
+    for (int e = tid; e < elems; e += kThreads) {
+      const int p = e / per;
+      cluster.map_shared_rank(inbox, p)[rank * per + e - p * per] = warp_sum(e);
+    }
+    tsar::cluster_arrive_release();
+    tsar::cluster_wait();
+  }
+  const int mine = min(per, elems - rank * per);
+  for (int i = tid; i < mine; i += kThreads) {
+    const int e = rank * per + i;
+    const int col = col0 + e % kBM;
+    if (col >= m) continue;
+    float v = 0.f;
+    if (csize > 1) {
+      for (int p = 0; p < csize; ++p) v += inbox[p * per + i];
+    } else {
+      v = warp_sum(e);
+    }
+    out[(size_t)(row0 + e / kBM) * m + col] = v * __ldg(w_scale + col);
   }
 }
 
-// out[i] = (sum over splits, in order, of ws[z][i]) * w_scale[col].
-__global__ void lut_epilogue_kernel(const float* __restrict__ ws,
-                                    const float* __restrict__ w_scale,
-                                    float* __restrict__ out, int n, int m, int splits) {
-  const size_t total = (size_t)n * m;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int z = 0; z < splits; ++z) s += ws[(size_t)z * total + i];
-    out[i] = s * w_scale[i % m];
+template <int C, int RW>
+cudaError_t launch(const CUtensorMap& pm, const CUtensorMap& zm, const CUtensorMap& am,
+                   const float* w_scale, float* out, int n, int blocks, int mp, int m, int rt,
+                   int row_groups, int splits, int blocks_per_split, int stages,
+                   int stage_blocks, int smem, cudaStream_t stream) {
+  auto kernel = tsar_lut_kernel<C, RW>;
+  // The opt-in above 48 KiB of shared memory holds for one device: made
+  // once per device for this instance.
+  constexpr int kDevices = 64;
+  static bool smem_raised[kDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kDevices || !smem_raised[dev]) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e != cudaSuccess) return e;
+    if (dev < kDevices) smem_raised[dev] = true;
   }
-}
-
-template <int BN>
-void launch(const float* a, const uint8_t* ip, const uint8_t* iz, const float* wsc,
-            float* out, float* ws, int n, int blocks, int m, int c, int cb,
-            int blocks_per_split, int splits, cudaStream_t stream) {
-  dim3 grid((m + kTileCols - 1) / kTileCols, (n + BN - 1) / BN, splits);
-  const size_t smem = sizeof(float) * ((size_t)BN * cb * (1 << c) + (size_t)BN * cb * c + BN);
-  tsar_lut_kernel<BN><<<grid, kThreads, smem, stream>>>(
-      a, ip, iz, wsc, out, ws, n, blocks, m, c, cb, blocks_per_split);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((mp + kBM - 1) / kBM, (n + rt - 1) / rt, splits);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, pm, zm, am, w_scale, out, n, blocks, m, rt,
+                            row_groups, blocks_per_split, stages, stage_blocks);
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  Returns cudaGetLastError() after
-// the launches; the caller raises when it is not cudaSuccess.
+// Plain C entry point (bound with ctypes).  One cluster launch; returns
+// cudaGetLastError() (or the launch's own error), and the caller raises when
+// it is not cudaSuccess.  Allocates nothing on the device.
 //
-// Preconditions, checked by the Python wrapper (repro_torch/kernels/
-// tsar_lut.py): 1 <= c <= 8, m % 4 == 0, every pointer on the current
-// device, the index arrays 4-byte aligned, every index byte < 2^c, cb chosen
-// so the dynamic shared memory stays within 48 KiB, splits ==
-// ceil(blocks / blocks_per_split), and ws an f32 (splits, n, m) buffer when
-// splits > 1.
+// Preconditions, checked here (cudaErrorInvalidValue otherwise) and by the
+// Python wrapper (repro_torch/kernels/tsar_lut.py, which pads ragged
+// shapes): 1 <= c <= 8; blocks * c a multiple of 4 and mp a multiple of 16,
+// so that every TMA row is 16-byte aligned; m <= mp; a and the index arrays
+// 16-byte aligned; every index byte < 2^c.  rt (rows per CTA tile, 1..32),
+// rows_per_warp (1, 2, 4, 8 or 16 at c = 4; 4 or 16 otherwise), row_groups (1
+// or 2), splits (the cluster size, 1..8), blocks_per_split, stages (1..8)
+// and stage_blocks come from kernels/tsar_lut.py::launch_config.
 extern "C" int tsar_lut_gemv(const void* a, const void* idx_pos, const void* idx_zero,
-                             const void* w_scale, void* out, void* ws, int n,
-                             int blocks, int m, int c, int bn, int cb,
-                             int blocks_per_split, int splits, void* stream_ptr) {
+                             const void* w_scale, void* out, int n, int blocks, int mp,
+                             int m, int c, int rt, int rows_per_warp, int row_groups, int splits,
+                             int blocks_per_split, int stages, int stage_blocks,
+                             void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  auto* af = static_cast<const float*>(a);
-  auto* ip = static_cast<const uint8_t*>(idx_pos);
-  auto* iz = static_cast<const uint8_t*>(idx_zero);
+  if (c < 1 || c > 8 || n <= 0 || blocks <= 0 || m <= 0 || mp % 16 || m > mp ||
+      (blocks * c) % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tables = c <= 5 ? 32 >> c : 1;
+  const int granule = tables > 4 ? tables : 4;          // blocks: whole steps, 16-byte rows
+  if (rt < 1 || rt > kMaxRows || rt > n || row_groups < 1 || row_groups > 2 ||
+      (rt + row_groups - 1) / row_groups > rows_per_warp || splits < 1 || splits > 8 ||
+      blocks_per_split < 1 || blocks_per_split % granule ||
+      (splits - 1) * blocks_per_split >= blocks || splits * blocks_per_split < blocks ||
+      stages < 1 || stages > kMaxStages || stage_blocks < 1 || stage_blocks % granule ||
+      stage_blocks > 256 || stage_blocks * c > 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = layout(c, rt, kWarps / row_groups, stages, stage_blocks).total;
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(idx_pos) |
+                         reinterpret_cast<uintptr_t>(idx_zero);
+  if (ptrs % 16) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap maps[3] = {};
+  constexpr auto u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  if (!(tsar::encode_2d(&maps[0], u8, 1, idx_pos, blocks, mp, stage_blocks, kBM,
+                        CU_TENSOR_MAP_SWIZZLE_NONE) &&
+        tsar::encode_2d(&maps[1], u8, 1, idx_zero, blocks, mp, stage_blocks, kBM,
+                        CU_TENSOR_MAP_SWIZZLE_NONE) &&
+        tsar::encode_2d(&maps[2], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a, n, blocks * c, rt,
+                        stage_blocks * c, CU_TENSOR_MAP_SWIZZLE_NONE)))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto* wsc = static_cast<const float*>(w_scale);
   auto* o = static_cast<float*>(out);
-  auto* w = static_cast<float*>(ws);
-  switch (bn) {
-#define TSAR_CASE(B)                                                                 \
-    case B:                                                                          \
-      launch<B>(af, ip, iz, wsc, o, w, n, blocks, m, c, cb, blocks_per_split, splits, \
-                stream);                                                             \
-      break;
-    TSAR_CASE(4) TSAR_CASE(8) TSAR_CASE(12) TSAR_CASE(16)
-    TSAR_CASE(20) TSAR_CASE(24) TSAR_CASE(28) TSAR_CASE(32)
+  cudaError_t e = cudaErrorInvalidValue;
+#define TSAR_CASE(C, RW)                                                                      \
+  if (c == C && rows_per_warp == RW)                                                          \
+    e = launch<C, RW>(maps[0], maps[1], maps[2], wsc, o, n, blocks, mp, m, rt, row_groups,    \
+                      splits, blocks_per_split, stages, stage_blocks, smem, stream);
+  TSAR_CASE(4, 1) TSAR_CASE(4, 2) TSAR_CASE(4, 4) TSAR_CASE(4, 8) TSAR_CASE(4, 16)
+  TSAR_CASE(1, 4) TSAR_CASE(1, 16) TSAR_CASE(2, 4) TSAR_CASE(2, 16)
+  TSAR_CASE(3, 4) TSAR_CASE(3, 16) TSAR_CASE(5, 4) TSAR_CASE(5, 16)
+  TSAR_CASE(6, 4) TSAR_CASE(6, 16) TSAR_CASE(7, 4) TSAR_CASE(7, 16)
+  TSAR_CASE(8, 4) TSAR_CASE(8, 16)
 #undef TSAR_CASE
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (splits > 1) {
-    const size_t total = (size_t)n * m;
-    const int threads = 256;
-    const int grid = static_cast<int>(
-        (total + threads - 1) / threads < 4096 ? (total + threads - 1) / threads : 4096);
-    lut_epilogue_kernel<<<grid, threads, 0, stream>>>(w, wsc, o, n, m, splits);
-  }
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

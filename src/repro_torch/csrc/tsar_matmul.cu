@@ -56,8 +56,6 @@
 
 #include <cooperative_groups.h>
 #include <cstdint>
-#include <cuda.h>
-#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 
 #include "tsar_common.cuh"
@@ -299,41 +297,6 @@ tsar_matmul_kernel(const __grid_constant__ CUtensorMap sign_map,   // (Kp/8, M) 
   }
 }
 
-// cuTensorMapEncodeTiled, looked up in libcuda through the CUDA runtime
-// (nothing to link).
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                     &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
-// A 2-D uint8 tensor map over (rows, cols) row-major at `base` with row
-// stride `cols` bytes, copied in boxes of (box_rows, box_cols).
-bool encode_2d(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
-               int box_cols, CUtensorMapSwizzle swizzle) {
-  auto encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int NT>
 cudaError_t launch(const CUtensorMap& sm, const CUtensorMap& zm, const CUtensorMap& am,
                    const float* a_scale, const float* w_scale, float* out, int n, int kp,
@@ -399,11 +362,13 @@ extern "C" int tsar_matmul_packed(const void* a_q, const void* a_scale, const vo
                          reinterpret_cast<uintptr_t>(a_q);
   if (ptrs % 16) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap maps[3] = {};
-  if (!(encode_2d(&maps[0], sign, kp / 8, m, stage_steps * (kKStep / 8), kBM,
-                  CU_TENSOR_MAP_SWIZZLE_NONE) &&
-        encode_2d(&maps[1], zero, kp / 8, m, stage_steps * (kKStep / 8), kBM,
-                  CU_TENSOR_MAP_SWIZZLE_NONE) &&
-        encode_2d(&maps[2], a_q, n, kp, 8 * n_tiles, kActBox, CU_TENSOR_MAP_SWIZZLE_128B)))
+  constexpr auto u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  if (!(tsar::encode_2d(&maps[0], u8, 1, sign, kp / 8, m, stage_steps * (kKStep / 8), kBM,
+                        CU_TENSOR_MAP_SWIZZLE_NONE) &&
+        tsar::encode_2d(&maps[1], u8, 1, zero, kp / 8, m, stage_steps * (kKStep / 8), kBM,
+                        CU_TENSOR_MAP_SWIZZLE_NONE) &&
+        tsar::encode_2d(&maps[2], u8, 1, a_q, n, kp, 8 * n_tiles, kActBox,
+                        CU_TENSOR_MAP_SWIZZLE_128B)))
     return static_cast<int>(cudaErrorInvalidValue);
   auto* as = static_cast<const float*>(a_scale);
   auto* wsc = static_cast<const float*>(w_scale);

@@ -119,8 +119,8 @@ def tsar_lut_gemv(x: torch.Tensor, idx_pos: torch.Tensor, idx_zero: torch.Tensor
     ``x`` (..., K) float -> (..., M) float32, with (ceil(K/c), M) uint8
     encodings from ``core.ternary.pack_indices``.  The activations stay
     float32 (no quantization); K is zero-padded to ``blocks * c`` only
-    (padded channels build all-zero LUT entries, so any index adds 0), and M
-    to a multiple of 4 for the kernel's 4-column loads.
+    (padded channels build all-zero LUT entries, so any index adds 0).  The
+    kernel's wrapper pads further where its TMA copies need it.
     """
     blocks, m = idx_pos.shape
     k = x.shape[-1]
@@ -128,9 +128,7 @@ def tsar_lut_gemv(x: torch.Tensor, idx_pos: torch.Tensor, idx_zero: torch.Tensor
         raise ValueError(f"x has {k} features, indices cover {blocks * c}")
     lead = tuple(x.shape[:-1])
     x2 = _pad_to(x.reshape(-1, k).to(torch.float32), 1, blocks * c)
-    ip = _pad_to(idx_pos, 1, 4)
-    iz = _pad_to(idx_zero, 1, 4)
-    wsc = _pad_to(w_scale.to(torch.float32), 0, 4)
-    y = _lut_kernel.tsar_lut_gemv(x2.contiguous(), ip.contiguous(), iz.contiguous(),
-                                  wsc.contiguous(), c=c)
-    return y[:, :m].reshape(lead + (m,))
+    y = _lut_kernel.tsar_lut_gemv(x2.contiguous(), idx_pos.contiguous(),
+                                  idx_zero.contiguous(),
+                                  w_scale.to(torch.float32).contiguous(), c=c)
+    return y.reshape(lead + (m,))

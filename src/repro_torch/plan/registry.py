@@ -193,8 +193,10 @@ class TsarLUT:
     def tiles(self, n, k, m, c=4):
         from repro_torch.kernels import tsar_lut
 
-        bn, cb, _, _ = tsar_lut.launch_config(n, -(-k // c), m, c, sm_count=1)
-        return (bn, cb, tsar_lut._TILE_COLS)
+        # (rows per CTA, c-blocks per ring stage, columns per CTA): the picks
+        # on an H100's SM_COUNT SMs.
+        cfg = tsar_lut.launch_config(n, -(-k // c), m, c, _hw().SM_COUNT)
+        return (cfg.rows, cfg.stage_blocks, cfg.bm)
 
     def lower(self, frozen, x, *, lp=None):
         from repro_torch.kernels import ops

@@ -175,12 +175,52 @@ def test_wrapper_rejects_malformed_inputs(bad):
                                      (32, 64, 8, 8)])
 def test_launch_config_fits_shared_memory_and_covers_k(n, k, m, c):
     blocks = -(-k // c)
-    bn, cb, per, splits = tl.launch_config(n, blocks, m, c, sm_count=132)
-    assert bn >= min(n, 32) and bn % 4 == 0
-    assert 1 <= cb <= 64 and 1 <= per and 1 <= splits <= blocks
-    assert (splits - 1) * per < blocks <= splits * per     # no empty split
-    smem = 4 * (bn * cb * (1 << c) + bn * cb * c + bn)
-    assert smem <= 48 * 1024
+    blocks += -blocks % (4 // np.gcd(c, 4))           # as pad_for_tma leaves it
+    mp = m + -m % 16
+    cfg = tl.launch_config(n, blocks, mp, c, sm_count=132)
+    assert cfg.bm == 128 and 1 <= cfg.rows <= min(n, 32)
+    # One cluster of 1..8 CTAs per output tile, all in one wave of two CTAs
+    # per SM.
+    tiles = -(-mp // cfg.bm) * -(-n // cfg.rows)
+    assert 1 <= cfg.splits <= 8
+    assert tiles * cfg.splits <= 2 * 132 or cfg.splits == 1
+    # Splits fall on whole warp steps of whole 16-byte activation rows, and
+    # every split has blocks: the last one starts inside K.
+    granule = max(4, 32 >> c if c <= 5 else 1)
+    assert cfg.blocks_per_split % granule == 0 and cfg.stage_blocks % granule == 0
+    assert (cfg.splits - 1) * cfg.blocks_per_split < blocks <= cfg.splits * cfg.blocks_per_split
+    # No ring stage without blocks; TMA boxes within 256 rows and elements;
+    # the CTA within half an SM, under the per-block opt-in of 227 KiB.
+    assert 1 <= cfg.stages <= 8 and (cfg.stages - 1) * cfg.stage_blocks < cfg.blocks_per_split
+    assert cfg.stage_blocks <= 256 and cfg.stage_blocks * c <= 256
+    smem = tl.smem_bytes(c, cfg.rows, cfg.row_groups, cfg.stages, cfg.stage_blocks)
+    assert smem <= tl._SMEM_BUDGET <= 227 * 1024
+    # Every row of the CTA tile has a warp whose registers hold it.
+    assert cfg.row_groups in (1, 2) and cfg.rows_per_warp in (1, 2, 4, 8, 16)
+    assert cfg.row_groups * cfg.rows_per_warp >= cfg.rows
+
+
+@pytest.mark.parametrize("c", [2, 4, 8])
+@pytest.mark.parametrize("n,k,m", [(4, 256, 128), (1, 132, 70), (33, 132, 72),
+                                   (3, 60, 16), (2, 24, 5)])
+def test_tma_padding_keeps_the_product(n, k, m, c):
+    """The CUDA wrapper pads blocks so that blocks * c is a multiple of 4
+    (zero activations, zero index rows) and M to 16 for TMA: the padded
+    columns are cut off, and aligned shapes are not copied."""
+    x, t, scale = _problem(n, k, m, seed=c)
+    tp, tz = ternary.pack_indices(torch.from_numpy(t), c)
+    blocks = tp.shape[0]
+    xt = torch.nn.functional.pad(torch.from_numpy(x), (0, blocks * c - k))
+    st = torch.from_numpy(scale)
+    padded = tl.pad_for_tma(xt, tp, tz, st, c)
+    pa, pp, pz, pw = padded
+    assert (pp.shape[0] * c) % 4 == 0 and pp.shape[1] % 16 == 0 and pp.shape == pz.shape
+    assert pa.shape == (n, pp.shape[0] * c) and pw.shape == (pp.shape[1],)
+    if (blocks * c) % 4 == 0 and m % 16 == 0:
+        assert all(p is q for p, q in zip(padded, (xt, tp, tz, st)))
+    want = tl.tsar_lut_plain(xt, tp, tz, st, c)
+    got = tl.tsar_lut_plain(pa, pp, pz, pw, c)[:, :m]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.gpu
@@ -188,7 +228,8 @@ def test_cuda_lut_kernel_matches_plain_version():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
     dev = torch.device("cuda")
-    for n, k, m, c in [(4, 2560, 6912, 4), (20, 6912, 2560, 4), (33, 132, 70, 2)]:
+    for n, k, m, c in [(4, 2560, 6912, 4), (20, 6912, 2560, 4), (33, 132, 70, 2),
+                       (1, 2560, 2560, 1), (4, 2560, 2560, 5), (20, 2560, 2560, 8)]:
         x, t, scale = _problem(n, k, m)
         tp, tz = ternary.pack_indices(torch.from_numpy(t).to(dev), c)
         xs, ss = torch.from_numpy(x).to(dev), torch.from_numpy(scale).to(dev)
@@ -196,3 +237,5 @@ def test_cuda_lut_kernel_matches_plain_version():
         want = lut.tsar_lut_matmul(xs, tp, tz, c, ss)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-3)
+        # Deterministic: every sum in a fixed order, no atomics.
+        assert torch.equal(ops.tsar_lut_gemv(xs, tp, tz, ss, c=c), got)

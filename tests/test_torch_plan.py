@@ -258,7 +258,7 @@ def test_unported_lowerings_raise(name):
 
 def test_tiles_are_the_cuda_launch_picks():
     from repro_torch.core import hw
-    from repro_torch.kernels import tsar_matmul
+    from repro_torch.kernels import tsar_lut, tsar_matmul
 
     # (rows per CTA: whole 8-row n-tiles, k per ring stage, columns per CTA)
     # of the cluster kernel's launch_config on an H100's 132 SMs.
@@ -269,7 +269,11 @@ def test_tiles_are_the_cuda_launch_picks():
     assert registry.get("tsar_mxu").tiles(20, 2560, 2560) == (24, 224, 64)
     assert registry.get("tsar_sparse_padded").tiles(33, 2560, 2560) == (32, 256, 256)
     assert registry.get("tsar_sparse").tiles(4, 2560, 2560) == (4, 256, 256)
-    # (rows per CTA, blocks per shared-memory LUT chunk, columns per CTA)
-    assert registry.get("tsar_lut").tiles(4, 2560, 2560) == (4, 64, 256)
-    assert registry.get("tsar_lut").tiles(20, 2560, 2560, c=2) == (20, 4096 // (20 << 2), 256)
+    # (rows per CTA, c-blocks per ring stage, columns per CTA) of the
+    # cluster kernel's launch_config.
+    assert registry.get("tsar_lut").tiles(4, 2560, 2560) == (4, 20, 128)
+    cfg = tsar_lut.launch_config(20, 1280, 2560, 2, hw.SM_COUNT)
+    assert registry.get("tsar_lut").tiles(20, 2560, 2560, c=2) == (cfg.rows, cfg.stage_blocks,
+                                                                   cfg.bm)
+    assert registry.get("tsar_lut").tiles(20, 2560, 2560, c=2) == (7, 80, 128)
     assert registry.get("dense").tiles(4, 128, 128) == ()

@@ -130,8 +130,9 @@ def worker(root: Path) -> dict:
     return {"root": str(root), "rows": rows}
 
 
-def turn(root: Path) -> dict:
-    res = subprocess.run([sys.executable, __file__, "--worker", str(root)], capture_output=True,
+def turn(root: Path, script: str = __file__) -> dict:
+    """One turn: ``script --worker root`` in a process of its own."""
+    res = subprocess.run([sys.executable, script, "--worker", str(root)], capture_output=True,
                          text=True, timeout=900)
     if res.returncode:
         raise RuntimeError(f"turn in {root} failed:\n{res.stdout[-4000:]}{res.stderr[-4000:]}")
