@@ -22,10 +22,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
    4 x 2560 x 6912 must show exactly 4 device kernels and no memset;
 4. ``tsar_sparse_padded`` kernel phase: the same eight shapes on padded
    pools with half of the (256, 256) blocks dead (numpy seed 0), plus
-   ragged, empty-strip and all-zero-activation cases, required
-   ``torch.equal`` to the plain version; times beside the bound of the live
-   blocks, the dense ``tsar_matmul`` on the same decoded matrix and
-   ``torch._int_mm``;
+   ragged N/K/M, N = 33 (two row tiles), an empty strip inside a cluster of
+   more than one CTA, all-zero activations, (64, 36) blocks (bm padded for
+   TMA), (40, 36) blocks (bk padded, a ragged Kp) and a walk longer than
+   the ring (N = 33 on full-grid pools: two ring stages take turns),
+   required ``torch.equal`` to the plain version and two calls on the same
+   inputs ``torch.equal``; times beside the bound of the live blocks, the
+   dense ``tsar_matmul`` on the same decoded matrix and ``torch._int_mm``;
+   the launch structure as for ``tsar_matmul`` (4 calls -> 4 device
+   kernels, no memset, nothing else);
 5. ``tsar_lut`` kernel phase: the four projection shapes x N in {1, 4, 20},
    c = 4, float32 activations, indices from ``pack_indices`` (numpy seed
    0), within rtol 1e-4 / atol 2e-3 of the plain version and of the dense
@@ -38,10 +43,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    else);
 6. ``tsar_sparse`` (compacted pool) kernel phase: the four projection
    shapes x N in {1, 4, 20} on ``from_ternary`` pools with half of the
-   (256, 256) blocks dead, required
-   ``torch.equal``; an all-dead matrix, an empty strip and ragged N/K/M;
-   times beside the live-block bound, the padded kernel on the same matrix
-   and ``torch._int_mm``;
+   (256, 256) blocks dead, required ``torch.equal``; an all-dead matrix, an
+   empty strip inside a cluster of more than one CTA, ragged N/K/M, (64, 36)
+   and (40, 36) blocks, two calls ``torch.equal``; times beside the
+   live-block bound, the padded kernel on the same matrix and
+   ``torch._int_mm``; the launch structure (4 calls -> 4 device kernels);
 7. dense engine phase: full-width ``bitnet-2b-4t`` (30 layers, random
    weights from seed 0) served through ``ServingEngine(device="cuda")`` with
    its defaults (``sparse="auto"``, compiled plan): random absmean weights
@@ -402,26 +408,47 @@ def sparse_kernel_phase(torch, cfg) -> dict:
                   f"tsar_matmul {dense_ms * 1e3:.2f} us | plain {plain_ms * 1e3:.1f} us | "
                   f"_int_mm int8 {library_ms * 1e3:.2f} us", flush=True)
             del pools, planes, w8
-    # Ragged shapes, an empty strip and all-zero activations through the
-    # public wrapper, (64, 64) blocks.
-    cases = [(1, 200, 130, False, False), (33, 200, 130, False, False),
-             (4, 200, 130, True, False), (20, 512, 512, False, True)]
-    for n, k, m, dead_strip, zero_act in cases:
-        t = block_sparse_ternary(torch, rng, k, m, 64, 64, dev, dead_strip=dead_strip)
+    # Through the public wrapper: ragged N/K/M, N = 33 (two row tiles), an
+    # empty strip inside a cluster of more than one CTA, all-zero
+    # activations, (64, 36) blocks (bm padded to 48 for TMA), (40, 36)
+    # blocks (bk padded to 48: Kp = 200 is not a multiple of 16) and a walk
+    # longer than the ring (full-grid pools at N = 33: two stages take turns).
+    cases = [(1, 200, 130, 64, 64, "ragged"), (33, 200, 130, 64, 64, "N=33"),
+             (4, 200, 130, 64, 64, "empty strip"), (20, 512, 512, 64, 64, "zero activations"),
+             (4, 256, 144, 64, 36, "(64, 36) blocks"), (33, 200, 100, 40, 36, "(40, 36) blocks"),
+             (33, 6912, 6912, 256, 256, "ring turnover")]
+    for n, k, m, cbk, cbm, what in cases:
+        t = block_sparse_ternary(torch, rng, k, m, cbk, cbm, dev,
+                                 dead_strip=what == "empty strip")
         p = sformat.pad_from_ternary(t, torch.rand((m,), generator=gen, device=dev) + 0.01,
-                                     64, 64)
+                                     cbk, cbm)
         x = torch.randn((n, k), generator=gen, device=dev)
-        if zero_act:
+        if what == "zero activations":
             x[::3] = 0.0
             x[:, 64:128] = 0.0
         got = ops.tsar_sparse_padded_matmul(x, p)
         want = ref.padded_sparse_matmul_ref(x, p)
         _require(got.shape == (n, m), f"sparse output shape {tuple(got.shape)}")
-        _require(not dead_strip or int(p.counts[0]) == 0, "strip 0 is not empty")
+        picks = ts.launch_config(n, -(-cbk // 16) * 16, -(-cbm // 16) * 16, p.grid[1],
+                                 p.s_steps, ts._sm_count(0))
+        if what == "empty strip":
+            _require(int(p.counts[0]) == 0 and picks.cluster > 1,
+                     f"strip 0 has {int(p.counts[0])} live blocks, cluster {picks.cluster}")
+        _require(what != "ring turnover" or picks.stages == 2, f"ring {tuple(picks)}")
         _require(torch.equal(got, want), f"tsar_sparse_padded != plain at N={n} K={k} "
-                 f"M={m} (empty strip {dead_strip}, zero activations {zero_act})")
-        print(f"tsar_sparse_padded N={n} K={k} M={m} (64, 64) blocks, empty strip "
-              f"{dead_strip}, zero activation rows/k-block {zero_act}: equal", flush=True)
+                 f"M={m} ({cbk}, {cbm}) blocks ({what})")
+        _require(torch.equal(ops.tsar_sparse_padded_matmul(x, p), got),
+                 f"tsar_sparse_padded N={n} K={k} M={m} ({what}): two calls differ")
+        print(f"tsar_sparse_padded N={n} K={k} M={m} ({cbk}, {cbm}) blocks, {what}, "
+              f"counts {p.counts.tolist()[:8]} {tuple(picks)}: equal, two calls equal",
+              flush=True)
+    n, k, m = 4, 2560, 6912
+    t = block_sparse_ternary(torch, rng, k, m, bk, bm, dev)
+    p = sformat.pad_from_ternary(t, torch.rand((m,), generator=gen, device=dev) + 0.01, bk, bm)
+    a_q = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+    a_scale = torch.rand((n, 1), generator=gen, device=dev) + 0.01
+    launch_structure(torch, "tsar_sparse", lambda: ts.tsar_sparse_padded_matmul_packed(
+        a_q, a_scale, p.sign_pool, p.zero_pool, p.kids, p.slots, p.counts, p.scale))
     return {"rows": rows, "max_abs_err": max_err}
 
 
@@ -580,28 +607,42 @@ def compact_kernel_phase(torch, cfg) -> dict:
                   f" | plain {plain_ms * 1e3:.1f} us | _int_mm int8 "
                   f"{library_ms * 1e3:.2f} us", flush=True)
             del pools, qpools, w8
-    # An all-dead matrix (one pad slot, every count 0), an empty strip and
-    # ragged N/K/M through the public wrapper, (64, 64) blocks.
-    cases = [(4, 512, 256, "all dead"), (4, 200, 130, "empty strip"),
-             (1, 200, 130, "ragged"), (33, 200, 130, "ragged")]
-    for n, k, m, what in cases:
+    # Through the public wrapper: an all-dead matrix (one pad slot, every
+    # count 0), an empty strip inside a cluster of more than one CTA, ragged
+    # N/K/M, (64, 36) and (40, 36) blocks.
+    cases = [(4, 512, 256, 64, 64, "all dead"), (4, 200, 130, 64, 64, "empty strip"),
+             (1, 200, 130, 64, 64, "ragged"), (33, 200, 130, 64, 64, "ragged"),
+             (4, 256, 144, 64, 36, "(64, 36) blocks"), (33, 200, 100, 40, 36, "(40, 36) blocks")]
+    for n, k, m, cbk, cbm, what in cases:
         if what == "all dead":
             t = torch.zeros((k, m), dtype=torch.int8, device=dev)
         else:
-            t = block_sparse_ternary(torch, rng, k, m, 64, 64, dev,
+            t = block_sparse_ternary(torch, rng, k, m, cbk, cbm, dev,
                                      dead_strip=what == "empty strip")
         p = sformat.from_ternary(t, torch.rand((m,), generator=gen, device=dev) + 0.01,
-                                 64, 64)
+                                 cbk, cbm)
         x = torch.randn((n, k), generator=gen, device=dev)
         got = ops.tsar_sparse_matmul(x, p)
         want = ref.block_sparse_matmul_ref(x, p)
         _require(got.shape == (n, m), f"tsar_sparse output shape {tuple(got.shape)}")
         _require(what != "all dead" or (p.n_live == 0 and p.sign_pool.shape[0] == 1
                                         and not bool(got.any())), "all-dead pool")
-        _require(what != "empty strip" or int(p.counts[0]) == 0, "strip 0 is not empty")
+        picks = ts.launch_config(n, -(-cbk // 16) * 16, -(-cbm // 16) * 16, p.grid[1],
+                                 max(p.s_max, 1), ts._sm_count(0))
+        _require(what != "empty strip" or (int(p.counts[0]) == 0 and picks.cluster > 1),
+                 f"strip 0 has {int(p.counts[0])} live blocks, cluster {picks.cluster}")
         _require(torch.equal(got, want), f"tsar_sparse != plain at N={n} K={k} M={m} ({what})")
-        print(f"tsar_sparse N={n} K={k} M={m} (64, 64) blocks, {what} (live {p.n_live}, "
-              f"s_max {p.s_max}): equal", flush=True)
+        _require(torch.equal(ops.tsar_sparse_matmul(x, p), got),
+                 f"tsar_sparse N={n} K={k} M={m} ({what}): two calls differ")
+        print(f"tsar_sparse N={n} K={k} M={m} ({cbk}, {cbm}) blocks, {what} (live {p.n_live}, "
+              f"s_max {p.s_max}) {tuple(picks)}: equal, two calls equal", flush=True)
+    n, k, m = 4, 2560, 6912
+    t = block_sparse_ternary(torch, rng, k, m, bk, bm, dev)
+    p = sformat.from_ternary(t, torch.rand((m,), generator=gen, device=dev) + 0.01, bk, bm)
+    a_q = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+    a_scale = torch.rand((n, 1), generator=gen, device=dev) + 0.01
+    launch_structure(torch, "tsar_sparse", lambda: ts.tsar_sparse_matmul_packed(
+        a_q, a_scale, p.sign_pool, p.zero_pool, p.kids, p.slots, p.counts, p.scale))
     return {"rows": rows, "max_abs_err": max_err}
 
 

@@ -35,7 +35,6 @@ from repro_torch.core import ternary
 # Launch counter; chip_smoke.py zeroes it before driving the serving path.
 LAUNCHES = {"tsar_matmul": 0}
 
-_BN_CHOICES = (4, 8, 12, 16, 20, 24, 28, 32)   # row tiles of tsar_sparse.cu, tsar_lut.cu
 # Constants of the CUDA source (csrc/tsar_matmul.cu).
 _COLS_PER_CTA = 64       # kBM
 _K_STEP = 32             # kKStep: k per mma, the split granule
@@ -81,12 +80,6 @@ def _lib():
     from repro_torch.kernels import _build
 
     return _PROTO(("tsar_matmul_packed", _build.load("tsar_matmul")))
-
-
-def row_tile(n: int) -> int:
-    """Rows per CTA for ``n`` rows: the smallest compiled tile that covers
-    ``n`` (a multiple of 4), or 32 and a grid over row tiles above that."""
-    return next((b for b in _BN_CHOICES if n <= b), _BN_CHOICES[-1])
 
 
 class LaunchConfig(NamedTuple):

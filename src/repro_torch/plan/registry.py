@@ -81,12 +81,6 @@ def _c_of(frozen) -> int:
     return 4 if c is None else c
 
 
-def _row_tile(n: int) -> int:
-    from repro_torch.kernels import tsar_matmul
-
-    return tsar_matmul.row_tile(n)
-
-
 @runtime_checkable
 class KernelImpl(Protocol):
     """What the planner and the runtime need from one kernel."""
@@ -245,8 +239,14 @@ class TsarSparse:
         return _leaf(frozen, "sparse") is not None
 
     def tiles(self, n, k, m, c=4):
-        # bk/bm are fixed by the format; the row tile is the CUDA kernel's.
-        return (_row_tile(n),) + SPARSE_BLOCK
+        from repro_torch.kernels import tsar_sparse
+
+        # (rows per CTA, k per ring stage, columns per CTA): the picks on an
+        # H100's SM_COUNT SMs for (256, 256) blocks and the longest walk
+        # the grid allows (every k-block live); the live counts are data.
+        bk, bm = SPARSE_BLOCK
+        cfg = tsar_sparse.launch_config(n, bk, bm, -(-m // bm), -(-k // bk), _hw().SM_COUNT)
+        return (8 * cfg.n_tiles, cfg.stage_blocks * min(bk, 256), cfg.bm)
 
     def lower(self, frozen, x, *, lp=None):
         from repro_torch.kernels import ops

@@ -258,7 +258,7 @@ def test_unported_lowerings_raise(name):
 
 def test_tiles_are_the_cuda_launch_picks():
     from repro_torch.core import hw
-    from repro_torch.kernels import tsar_lut, tsar_matmul
+    from repro_torch.kernels import tsar_lut, tsar_matmul, tsar_sparse
 
     # (rows per CTA: whole 8-row n-tiles, k per ring stage, columns per CTA)
     # of the cluster kernel's launch_config on an H100's 132 SMs.
@@ -267,8 +267,14 @@ def test_tiles_are_the_cuda_launch_picks():
     assert registry.get("tsar_mxu").tiles(20, 2560, 2560) == (8 * cfg.n_tiles,
                                                                32 * cfg.stage_steps, cfg.bm)
     assert registry.get("tsar_mxu").tiles(20, 2560, 2560) == (24, 224, 64)
-    assert registry.get("tsar_sparse_padded").tiles(33, 2560, 2560) == (32, 256, 256)
-    assert registry.get("tsar_sparse").tiles(4, 2560, 2560) == (4, 256, 256)
+    # (rows per CTA, k per ring stage, columns per CTA) of the sparse cluster
+    # kernel's launch_config for (256, 256) blocks, every k-block live.
+    cfg = tsar_sparse.launch_config(33, 256, 256, 10, 10, hw.SM_COUNT)
+    assert registry.get("tsar_sparse_padded").tiles(33, 2560, 2560) == (
+        8 * cfg.n_tiles, 256 * cfg.stage_blocks, cfg.bm)
+    assert registry.get("tsar_sparse_padded").tiles(33, 2560, 2560) == (32, 1024, 64)
+    assert registry.get("tsar_sparse").tiles(4, 2560, 2560) == (8, 512, 64)
+    assert registry.get("tsar_sparse").tiles(20, 6912, 2560) == (24, 2304, 64)
     # (rows per CTA, c-blocks per ring stage, columns per CTA) of the
     # cluster kernel's launch_config.
     assert registry.get("tsar_lut").tiles(4, 2560, 2560) == (4, 20, 128)

@@ -169,9 +169,59 @@ def test_wrapper_rejects_malformed_inputs(bad):
 @pytest.mark.parametrize("n,bm,mb,s_steps", [(4, 256, 10, 9), (20, 256, 3, 10),
                                              (33, 64, 3, 4), (1, 64, 1, 1)])
 def test_launch_config(n, bm, mb, s_steps):
-    bn, splits = ts.launch_config(n, bm, mb, s_steps, sm_count=132)
-    assert bn >= min(n, 32) and bn % 4 == 0
-    assert 1 <= splits <= s_steps
+    """The cluster kernel's picks, from shapes only: one wave of at most two
+    CTAs per SM (one where a strip's walk is split anyway and the rows take
+    more than one n-tile), a cluster of 1..8 CTAs that each can have a walk
+    step, the ring within half an SM's shared memory, and TMA boxes of at
+    most 256 rows (16-byte multiples along the inner dimension)."""
+    bk = bm
+    sm = 132
+    cfg = ts.launch_config(n, bk, bm, mb, s_steps, sm_count=sm)
+    assert cfg.bm == 64
+    tiles = mb * -(-bm // cfg.bm) * -(-n // 32)
+    assert tiles * cfg.cluster <= (2 if cfg.n_tiles == 1 or 2 * tiles > sm else 1) * sm
+    assert 1 <= cfg.cluster <= min(8, s_steps)
+    assert 1 <= cfg.n_tiles <= 4 and 8 * cfg.n_tiles >= min(n, 32) > 8 * (cfg.n_tiles - 1)
+    assert 1 <= cfg.stages <= 16 and cfg.stage_blocks >= 1
+    assert ts.smem_bytes(cfg.n_tiles, bk, cfg.stages, cfg.stage_blocks) <= ts._SMEM_BUDGET
+    # No ring chunk the longest share of the walk cannot use.
+    walk = -(-s_steps // cfg.cluster) * -(-bk // 256)
+    assert cfg.stages * cfg.stage_blocks <= walk
+    # TMA boxes: planes (min(bk/8, 32) rows, 64 columns), activations
+    # (8 * n_tiles rows, 128 k bytes).
+    for rows, inner in ((min(bk // 8, 32), cfg.bm), (8 * cfg.n_tiles, 128)):
+        assert 1 <= rows <= 256 and inner <= 256 and inner % 16 == 0
+
+
+@pytest.mark.parametrize("n,k,m,bk,bm", [(4, 256, 144, 64, 36), (33, 200, 100, 40, 36),
+                                         (20, 200, 130, 40, 64), (4, 512, 512, 256, 256)])
+def test_tma_padding_keeps_the_product(n, k, m, bk, bm):
+    """The CUDA wrapper pads blocks whose bk or bm is not a multiple of 16
+    for TMA (zero weights meeting zero activations, zero scales; a ragged
+    Kp = kb * bk becomes a multiple of 16): the plain product over the
+    padded operands, cut back to bm columns per strip, is the product;
+    aligned operands are not copied, and the launch picks do not change."""
+    t, scale = _block_sparse(k, m, bk, bm, 0.5, seed=n + k + m)
+    _, p = _both(t, scale, bk, bm)
+    kb, mb = p.grid
+    rng = np.random.default_rng(n)
+    a_q = torch.from_numpy(rng.integers(-127, 128, (n, kb * bk), dtype=np.int8))
+    a_scale = torch.from_numpy(rng.random((n, 1), dtype=np.float32) + 0.01)
+    w_scale = torch.nn.functional.pad(p.scale, (0, mb * bm - m))
+    sched = (p.kids, p.slots, p.counts)
+    padded = ts.pad_for_tma(a_q, p.sign_pool, p.zero_pool, w_scale)
+    pa, ps, pz, pw = padded
+    bkp, bmp = 8 * ps.shape[1], ps.shape[2]
+    assert bkp % 16 == 0 and bmp % 16 == 0 and ps.shape == pz.shape
+    assert pa.shape == (n, kb * bkp)
+    if bk % 16 == 0 and bm % 16 == 0:
+        assert all(x is y for x, y in zip(padded, (a_q, p.sign_pool, p.zero_pool, w_scale)))
+    want = ts.tsar_sparse_padded_plain(a_q, a_scale, p.sign_pool, p.zero_pool, *sched,
+                                       w_scale)
+    got = ts.tsar_sparse_padded_plain(pa, a_scale, ps, pz, *sched, pw)
+    assert torch.equal(got.view(n, mb, bmp)[:, :, :bm].reshape(n, mb * bm), want)
+    assert ts.launch_config(n, bk, bm, mb, p.s_steps, 132) == \
+        ts.launch_config(n, bk, bmp, mb, p.s_steps, 132)
 
 
 def test_profile_params_matches_reference():
@@ -218,13 +268,22 @@ def test_cuda_sparse_kernel_equals_plain_version():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
     dev = torch.device("cuda")
-    for n, k, m, bk in [(4, 2560, 6912, 256), (20, 6912, 2560, 256), (33, 200, 132, 64)]:
-        t, scale = _block_sparse(k, m, bk, bk, 0.5, seed=n, dead_strip=True)
+    # (N, K, M, bk, bm, dead fraction): serving shapes with strip 0 empty,
+    # N = 33 (two row tiles), an all-dead matrix, (64, 36) blocks (bm padded
+    # to 48), (40, 36) blocks with a ragged Kp (200, padded to 240) and
+    # (512, 128) blocks (two 256-k chunks a block).
+    for n, k, m, bk, bm, p_dead in [(4, 2560, 6912, 256, 256, 0.5),
+                                    (20, 6912, 2560, 256, 256, 0.5),
+                                    (33, 200, 132, 64, 64, 0.5), (4, 512, 256, 64, 64, 1.0),
+                                    (4, 256, 144, 64, 36, 0.5), (33, 200, 100, 40, 36, 0.5),
+                                    (9, 2600, 700, 512, 128, 0.5)]:
+        t, scale = _block_sparse(k, m, bk, bm, p_dead, seed=n, dead_strip=True)
         p = sformat.pad_from_ternary(torch.from_numpy(t).to(dev),
-                                     torch.from_numpy(scale).to(dev), bk=bk, bm=bk)
+                                     torch.from_numpy(scale).to(dev), bk=bk, bm=bm)
         x = torch.from_numpy(np.random.default_rng(n).standard_normal((n, k))
                              .astype(np.float32)).to(dev)
         got = ops.tsar_sparse_padded_matmul(x, p)
         want = ref.padded_sparse_matmul_ref(x, p)
         torch.cuda.synchronize()
-        assert torch.equal(got, want), (n, k, m)
+        assert torch.equal(got, want), (n, k, m, bk, bm)
+        assert torch.equal(ops.tsar_sparse_padded_matmul(x, p), got), (n, k, m, bk, bm)

@@ -163,14 +163,21 @@ def test_cuda_compact_kernel_equals_plain_version():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernel has no CPU mode")
     dev = torch.device("cuda")
-    for n, k, m, bk, p_dead in [(4, 2560, 6912, 256, 0.5), (20, 6912, 2560, 256, 0.5),
-                                (33, 200, 132, 64, 0.5), (4, 512, 256, 64, 1.0)]:
-        t, scale = _block_sparse(k, m, bk, bk, p_dead, seed=n, dead_strip=True)
+    # (N, K, M, bk, bm, dead fraction): serving shapes with strip 0 empty,
+    # N = 33, an all-dead matrix (one pad slot, every count 0), (64, 36)
+    # blocks, (40, 36) blocks with a ragged Kp and (512, 128) blocks.
+    for n, k, m, bk, bm, p_dead in [(4, 2560, 6912, 256, 256, 0.5),
+                                    (20, 6912, 2560, 256, 256, 0.5),
+                                    (33, 200, 132, 64, 64, 0.5), (4, 512, 256, 64, 64, 1.0),
+                                    (4, 256, 144, 64, 36, 0.5), (33, 200, 100, 40, 36, 0.5),
+                                    (9, 2600, 700, 512, 128, 0.5)]:
+        t, scale = _block_sparse(k, m, bk, bm, p_dead, seed=n, dead_strip=True)
         p = sformat.from_ternary(torch.from_numpy(t).to(dev),
-                                 torch.from_numpy(scale).to(dev), bk=bk, bm=bk)
+                                 torch.from_numpy(scale).to(dev), bk=bk, bm=bm)
         x = torch.from_numpy(np.random.default_rng(n).standard_normal((n, k))
                              .astype(np.float32)).to(dev)
         got = ops.tsar_sparse_matmul(x, p)
         want = ref.block_sparse_matmul_ref(x, p)
         torch.cuda.synchronize()
-        assert torch.equal(got, want), (n, k, m)
+        assert torch.equal(got, want), (n, k, m, bk, bm)
+        assert torch.equal(ops.tsar_sparse_matmul(x, p), got), (n, k, m, bk, bm)

@@ -130,10 +130,10 @@ def worker(root: Path) -> dict:
     return {"root": str(root), "rows": rows}
 
 
-def turn(root: Path, script: str = __file__) -> dict:
-    """One turn: ``script --worker root`` in a process of its own."""
-    res = subprocess.run([sys.executable, script, "--worker", str(root)], capture_output=True,
-                         text=True, timeout=900)
+def turn(root: Path, script: str = __file__, *extra: str) -> dict:
+    """One turn: ``script --worker root [extra...]`` in a process of its own."""
+    res = subprocess.run([sys.executable, script, "--worker", str(root), *extra],
+                         capture_output=True, text=True, timeout=900)
     if res.returncode:
         raise RuntimeError(f"turn in {root} failed:\n{res.stdout[-4000:]}{res.stderr[-4000:]}")
     return json.loads(res.stdout.strip().splitlines()[-1])
