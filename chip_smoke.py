@@ -12,16 +12,20 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``nvcc`` per source, started together) and print the build time and
    ``nvcc``'s register report;
 3. ``tsar_matmul`` kernel phase: the kernel against its plain PyTorch
-   version at the eight (N, K, M) shapes of the ``bitnet-2b-4t`` serving step,
-   at N in {1, 8, 9, 32, 33} x 2560 x 6912, at 20 x 2576 x 2576 and
+   version at the four projection shapes of ``bitnet-2b-4t`` x N in
+   {4, 20, 64, 77, 128} (the flat policy's decode and prefill widths, the
+   chunked policy's 4 x 16 rows, a ragged and a full whole prompt), at
+   N in {1, 8, 9, 32, 33} x 2560 x 6912, at 20 x 2576 x 2576 and
    4 x 6928 x 80 (TMA boxes partly past the matrix), at 33 x 200 x 132 and
    at ragged shapes, required ``torch.equal``; CUDA-event times (median of 21
    CUDA-graph replays, each cycling over enough weight copies to defeat the
    50 MB L2) beside the bound and ``torch._int_mm`` on pre-decoded int8
-   weights; the launch structure: ``torch.profiler`` over 4 eager calls at
-   4 x 2560 x 6912 must show exactly 4 device kernels and no memset;
-4. ``tsar_sparse_padded`` kernel phase: the same eight shapes on padded
-   pools with half of the (256, 256) blocks dead (numpy seed 0), plus
+   weights; the launch structure: ``torch.profiler`` over two cycles of 4
+   eager calls at 4 x 2560 x 6912: the second must show exactly 4 device
+   kernels and no memset, the first's device ops a subset of those;
+4. ``tsar_sparse_padded`` kernel phase: the four shapes x N in
+   {4, 20, 64, 128} on padded pools with half of the (256, 256) blocks
+   dead (numpy seed 0), plus
    ragged N/K/M, N = 33 (two row tiles), an empty strip inside a cluster of
    more than one CTA, all-zero activations, (64, 36) blocks (bm padded for
    TMA), (40, 36) blocks (bk padded, a ragged Kp) and a walk longer than
@@ -54,14 +58,25 @@ Phases, in order; any failure raises and the exit code is non-zero:
    keep every block live, so the plan names only planes kernels and
    ``tsar_matmul`` must launch 210 x steps times; 8 requests finish, every
    logit is finite; a real ``w_gate`` projection at N=20 equals its plain
-   version; a reduced-config step on the GPU agrees with the CPU within 1e-4;
-8. block-sparse engine phase: the same model with a seeded half of every
+   version;
+8. policy phase: the same 8 requests on the same params through the
+   ``chunked`` and ``whole`` policies (after ``warmup``): greedy tokens equal
+   to the ``flat`` run's, launch counts equal to what the plan predicts for
+   the row counts each ran (4 x 16 rows, whole prompts);
+9. prefix-cache phase: 8 requests in 2 groups sharing a 96-token system
+   prompt, each with a 16-48-token suffix (numpy seed 0), 16 new tokens,
+   on a cold engine, a warm one (``prefix_cache=True``) and a warm one
+   with a pool of 27 blocks (it preempts): equal greedy tokens, cached
+   tokens skipped and fewer prefill tokens planned warm, ``kv.check()``
+   and no block leaked, launch counts as the plan predicts; then a
+   reduced-config step on the GPU agrees with the CPU within 1e-4;
+10. block-sparse engine phase: the same model with a seeded half of every
    projection's (256, 256) blocks zeroed (block (0, 0) always): pools for
    all 7 projections, a plan of ``tsar_sparse_padded``, both launch counts
    equal to what the plan predicts over the run's steps, and greedy tokens
    equal to engines pinned to ``tsar_mxu`` by a hand-edited plan; the two
    routes run in turns (sparse, mxu, mxu, sparse) for their step times;
-9. bitlinear path phase: the seven projections of one full-width layer
+11. bitlinear path phase: the seven projections of one full-width layer
    (numpy seed 0), frozen on the card by ``core.bitlinear.freeze`` dense and
    with a seeded half of their (256, 256) latent blocks zeroed (block (0, 0)
    always), ``compile_plan`` over the 14 ``FrozenBitLinear``s, then
@@ -72,7 +87,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    product, bf16 in gives bf16 out.
 
 Each engine run and each bitlinear run is a path: every launch count is set
-to 0 just before it and read just after.  The card's name and power limit
+to 0 just before it and read just after.  Greedy tokens of two runs are
+compared strictly; on a difference the script prints the first diverging
+request and token with both runs' top-2 logits and margins there, then
+fails.  The card's name and power limit
 are printed again before the ``{"kernels": [...]}`` line, which comes
 before the last; the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
 or of the JAX package ``repro``.
@@ -107,6 +125,12 @@ COUNTER_OF = {"tsar_mxu": "tsar_matmul", "tsar_lut": "tsar_lut",
 COUNTERS = ("tsar_matmul", "tsar_sparse_padded", "tsar_lut", "tsar_sparse")
 L2_BYTES = 50 * 2**20
 REPLAYS = 21
+# Row counts of the kernel phases: the flat policy's decode and prefill
+# widths (4, 20), the chunked policy's 4 slots x prefill_chunk 16 (64), and
+# whole-prompt prefills (a ragged 77, a full 128).
+MATMUL_NS = (4, 20, 64, 77, 128)
+SPARSE_NS = (4, 20, 64, 128)
+POLICIES = ("flat", "chunked", "whole")
 
 
 def _require(cond: bool, what: str) -> None:
@@ -159,6 +183,12 @@ def time_eager(torch, call, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def int_mm_rows(n: int) -> int:
+    """Rows ``torch._int_mm`` is given for an N-row product: at least 32, a
+    multiple of 8 (its requirements on the card)."""
+    return max(32, -(-n // 8) * 8)
 
 
 def bound(n: int, k: int, m: int) -> tuple[float, str]:
@@ -233,7 +263,7 @@ def kernel_phase(torch, cfg) -> dict:
     rows = {}
     max_err = 0.0
     distinct = sorted({(k, m) for _, k, m in step_shapes(cfg)})
-    for n in (4, 20):
+    for n in MATMUL_NS:
         for k, m in distinct:
             a_q = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
                                 dtype=torch.int8)
@@ -257,8 +287,9 @@ def kernel_phase(torch, cfg) -> dict:
             plain_ms = time_eager(
                 torch, lambda: tm.tsar_matmul_plain(a_q, a_scale, s0, z0, w_scale))
             # Library yardstick: torch._int_mm on int8 weights decoded ahead
-            # of time (4x the weight bytes of the planes), rows padded to 32.
-            a32 = torch.zeros((32, k), dtype=torch.int8, device=dev)
+            # of time (4x the weight bytes of the planes), rows padded as it
+            # needs (at least 32, a multiple of 8).
+            a32 = torch.zeros((int_mm_rows(n), k), dtype=torch.int8, device=dev)
             a32[:n] = a_q
             lib_copies = max(2, min(64, math.ceil(2 * L2_BYTES / (k * m))))
             w8 = [ternary.decode_planes(s, z, k).contiguous()
@@ -314,27 +345,45 @@ def kernel_phase(torch, cfg) -> dict:
 
 
 def launch_structure(torch, name: str, call, calls: int = 4) -> None:
-    """torch.profiler over ``calls`` eager calls of ``call`` (one wrapper
-    call of kernel ``name`` at N=4 x 2560 x 6912): the device must run
-    exactly one kernel per call (the cluster launch), ``<name>_kernel``, and
-    nothing else: no memset, no epilogue kernel."""
+    """torch.profiler over two cycles of ``calls`` eager calls of ``call``
+    (one wrapper call of kernel ``name`` at N=4 x 2560 x 6912), one trace.
+    The second cycle must run exactly one kernel per call (the cluster
+    launch), ``<name>_kernel``, and nothing else: no memset, no epilogue
+    kernel.  The first cycle runs while device tracing starts, which can
+    leave a kernel event unrecorded: its device ops are printed and must be
+    a subset of the second cycle's (no memset, no other kernel name), so an
+    op launched only on the first calls after a pause still fails."""
     from torch.profiler import ProfilerActivity, profile
 
     call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            call()
-        torch.cuda.synchronize()
-    device = [e.name for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+        for cycle in range(2):
+            if cycle:
+                time.sleep(0.02)       # the cycles stand 20 ms apart on the device
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+    device = sorted((e.time_range.start, e.name) for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    # The cycles split at the first gap of 10 ms or more between device ops
+    # (one cycle's ops lie microseconds apart); without one, the first cycle
+    # left no event.
+    cut = next((i for i in range(1, len(device))
+                if device[i][0] - device[i - 1][0] >= 10_000.0), 0)
+    first = [k for _, k in device[:cut]]
+    device = [k for _, k in device[cut:]]
     kernels = [k for k in device if f"{name}_kernel" in k]
     memsets = [k for k in device if "memset" in k.lower()]
     _require(len(kernels) == calls and len(device) == calls and not memsets,
              f"launch structure: {calls} calls ran {len(device)} device ops "
              f"({len(kernels)} {name} kernels, {len(memsets)} memsets): {device}")
+    _require(len(first) <= calls and set(first) <= set(device),
+             f"launch structure: the first {calls} calls ran {len(first)} device ops, "
+             f"not a subset of the second cycle's: {first}")
     print(f"{name} launch structure: {calls} calls -> {len(kernels)} device kernels "
-          f"({kernels[0][:60]}...), 0 memsets, no other device op", flush=True)
+          f"({kernels[0][:60]}...), 0 memsets, no other device op; first cycle "
+          f"{len(first)} ops, all {name}_kernel", flush=True)
 
 
 def sparse_kernel_phase(torch, cfg) -> dict:
@@ -353,7 +402,7 @@ def sparse_kernel_phase(torch, cfg) -> dict:
     rows = {}
     max_err = 0.0
     distinct = sorted({(k, m) for _, k, m in step_shapes(cfg)})
-    for n in (4, 20):
+    for n in SPARSE_NS:
         for k, m in distinct:
             t = block_sparse_ternary(torch, rng, k, m, bk, bm, dev)
             w_scale = torch.rand((m,), generator=gen, device=dev) + 0.01
@@ -391,7 +440,7 @@ def sparse_kernel_phase(torch, cfg) -> dict:
             dense_ms = time_graph(torch, [
                 (lambda s=s, z=z: tm.tsar_matmul_packed(a_k, a_scale, s, z, tw.scale))
                 for s, z in planes], launches_per_replay=2 * dcopies)
-            a32 = torch.zeros((32, k), dtype=torch.int8, device=dev)
+            a32 = torch.zeros((int_mm_rows(n), k), dtype=torch.int8, device=dev)
             a32[:n] = a_k
             lib_copies = max(2, min(64, math.ceil(2 * L2_BYTES / (k * m))))
             w8 = [t.clone() for _ in range(lib_copies)]
@@ -790,11 +839,13 @@ def zero_launch_counts() -> None:
 
 
 def predicted_launches(engine, widths: list) -> dict:
-    """Kernel launches the engine's plan predicts over steps of these widths:
-    each projection's planned kernel at the step's bucket, remapped within
-    the sparse family as ``models.layers._packed_linear`` does; a padded
-    sparse kernel on a layer with pools is ``tsar_sparse_padded``, a planes
-    kernel (or no plan entry) ``tsar_matmul``, once per stacked layer."""
+    """Kernel launches the engine's plan predicts over model calls of these
+    row counts (a flat step's width T, a rectangular step's slots x chunk, a
+    whole prefill's prompt length): each projection's planned kernel at the
+    call's bucket, remapped within the sparse family as
+    ``models.layers._packed_linear`` does; a padded sparse kernel on a layer
+    with pools is ``tsar_sparse_padded``, a planes kernel (or no plan entry)
+    ``tsar_matmul``, once per stacked layer."""
     from repro_torch.plan import registry
 
     want = dict.fromkeys(COUNTERS, 0)
@@ -821,10 +872,14 @@ def predicted_launches(engine, widths: list) -> dict:
 
 def run_path(torch, engine, reqs, label: str) -> dict:
     """Serve ``reqs`` as one path: launch counts zeroed just before, read
-    just after; every step's logits checked finite; every request must
-    finish with 16 tokens in ``[0, vocab)``."""
-    widths, finite = [], []
-    plan_flat, sample = engine.sched.plan_flat, engine._sample
+    just after and held against the plan's prediction for the row counts
+    of every model call the run made; every sampled logit row checked
+    finite (and kept, for :func:`same_tokens`); every request must finish
+    with 16 tokens in ``[0, vocab)``."""
+    widths, finite, rows, last = [], [], {}, {}
+    sched = engine.sched
+    plan_flat, plan_rect = sched.plan_flat, sched.plan
+    sample, emit, prefill_slot = engine._sample, engine._emit_token, engine._prefill_slot
 
     def recording_plan_flat(*args, **kw):
         plan = plan_flat(*args, **kw)
@@ -832,11 +887,29 @@ def run_path(torch, engine, reqs, label: str) -> dict:
             widths.append(plan.width)
         return plan
 
+    def recording_plan(*args, **kw):
+        plan = plan_rect(*args, **kw)
+        if hasattr(plan, "chunk"):
+            widths.append(engine.slots * plan.chunk)
+        return plan
+
+    def recording_prefill_slot(i, st):
+        widths.append(len(st.prompt))
+        return prefill_slot(i, st)
+
     def checked_sample(logits, temps):
         finite.append(bool(torch.isfinite(logits).all().item()))
+        last["logits"] = logits
         return sample(logits, temps)
 
-    engine.sched.plan_flat, engine._sample = recording_plan_flat, checked_sample
+    def recording_emit(i, st, tok):
+        logits = last["logits"]
+        rows[(st.req.uid, len(st.req.out_tokens))] = logits[i if len(logits) > 1 else 0].clone()
+        return emit(i, st, tok)
+
+    sched.plan_flat, sched.plan = recording_plan_flat, recording_plan
+    engine._sample, engine._emit_token = checked_sample, recording_emit
+    engine._prefill_slot = recording_prefill_slot
     zero_launch_counts()
     t0 = time.perf_counter()
     engine.run(reqs)
@@ -848,24 +921,49 @@ def run_path(torch, engine, reqs, label: str) -> dict:
     _require(all(0 <= t < vocab for r in reqs for t in r.out_tokens),
              f"{label}: a token outside [0, vocab)")
     _require(finite and all(finite), f"{label}: non-finite logits in a step")
-    _require(len(widths) == engine.stats["steps"], f"{label}: unrecorded steps")
+    _require(len(widths) == engine.stats["steps"] + engine.stats["whole_prefills"],
+             f"{label}: unrecorded model calls")
     want = predicted_launches(engine, widths)
     _require(launches == want, f"{label}: launches {launches}, the plan predicts {want}")
     decode_steps = engine.metrics.get("decode_steps").value
-    prefill_steps = engine.metrics.get("prefill_steps").value
+    prefill_calls = engine.metrics.get("prefill_steps").value + engine.stats["whole_prefills"]
     n_tok = sum(len(r.out_tokens) for r in reqs)
     pct = engine.latency_percentiles()
+    out = {"launches": launches, "tokens": [r.out_tokens for r in reqs], "rows": rows,
+           "widths": sorted(set(widths)), "wall": wall,
+           "decode_ms": engine.stats["decode_s"] / max(1, decode_steps) * 1e3,
+           "prefill_ms": engine.stats["prefill_s"] / max(1, prefill_calls) * 1e3,
+           "ttft_ms": pct["ttft_s"]["p50"] * 1e3, "tpot_ms": pct["tpot_s"]["p50"] * 1e3}
     print(f"{label}: {len(reqs)} requests, {engine.stats['steps']} steps "
-          f"({prefill_steps} with prefill), {engine.stats['prefill_tokens']} prompt "
-          f"tokens, {n_tok} generated, wall {wall:.3f} s, {n_tok / wall:.1f} generated "
-          f"tok/s | decode {engine.throughput():.1f} tok/s over {decode_steps} "
-          f"pure-decode steps ({engine.stats['decode_s'] / max(1, decode_steps) * 1e3:.2f}"
-          f" ms/step) | prefill steps "
-          f"{engine.stats['prefill_s'] / max(1, prefill_steps) * 1e3:.2f} ms/step | "
-          f"TTFT p50 {pct['ttft_s']['p50'] * 1e3:.1f} ms, TPOT p50 "
-          f"{pct['tpot_s']['p50'] * 1e3:.2f} ms | launches {launches} = plan's prediction",
-          flush=True)
-    return {"launches": launches, "tokens": [r.out_tokens for r in reqs]}
+          f"({engine.metrics.get('prefill_steps').value} with prefill, "
+          f"{engine.stats['whole_prefills']} whole prefills), "
+          f"{engine.stats['prefill_tokens']} prompt tokens in steps, {n_tok} generated, "
+          f"wall {wall:.3f} s, {n_tok / wall:.1f} generated tok/s | decode "
+          f"{engine.throughput():.1f} tok/s over {decode_steps} pure-decode steps "
+          f"({out['decode_ms']:.2f} ms/step) | prefill {out['prefill_ms']:.2f} ms per "
+          f"call | TTFT p50 {out['ttft_ms']:.1f} ms, TPOT p50 {out['tpot_ms']:.2f} ms | "
+          f"row counts {out['widths']} | launches {launches} = plan's prediction", flush=True)
+    return out
+
+
+def same_tokens(torch, a: dict, b: dict, what: str) -> None:
+    """Equal greedy tokens in two runs of the same requests, strictly.  On a
+    difference: the first diverging request and token, both runs' top-2
+    logits there and their margins, and how far the two runs' logit rows
+    apart are; then fail."""
+    for uid, (ta, tb) in enumerate(zip(a["tokens"], b["tokens"])):
+        if ta == tb:
+            continue
+        j = next(j for j, (x, y) in enumerate(zip(ta, tb)) if x != y)
+        ra, rb = a["rows"][(uid, j)], b["rows"][(uid, j)]
+        (va, ia), (vb, ib) = torch.topk(ra, 2), torch.topk(rb, 2)
+        rel = ((ra - rb).abs() / rb.abs().clamp_min(1e-30)).max().item()
+        print(f"{what}: first divergence at request {uid}, token {j}: "
+              f"top-2 {ia.tolist()} {va.tolist()} (margin {(va[0] - va[1]).item():.6g}) "
+              f"against {ib.tolist()} {vb.tolist()} (margin {(vb[0] - vb[1]).item():.6g}); "
+              f"logit rows max abs diff {(ra - rb).abs().max().item():.6g}, max rel "
+              f"diff {rel:.6g}; tokens before it equal", flush=True)
+        raise AssertionError(f"{what}: greedy tokens differ (request {uid}, token {j})")
 
 
 def bitlinear_leaves(params) -> dict:
@@ -915,20 +1013,27 @@ def init_frozen(torch, cfg, kill_blocks: bool):
     return params
 
 
-def engine_phase(torch, cfg, profile: bool = False) -> dict:
+def dense_engine(torch, cfg, params, **kw):
+    """The dense phases' engine: 4 slots, ``prefill_chunk`` 16, ``block_size``
+    16, ``max_len`` 256 on the card; ``kw`` adds options."""
+    from repro_torch.serving import ServingEngine
+
+    return ServingEngine(cfg, params, max_len=256, batch_slots=4, prefill_chunk=16,
+                         device=torch.device("cuda"), **kw)
+
+
+def engine_phase(torch, cfg, params, profile: bool = False) -> dict:
     import numpy as np
 
     from repro_torch.core import ternary
     from repro_torch.kernels import ops, ref
     from repro_torch.models import transformer
-    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving import Request
 
     dev = torch.device("cuda")
-    params = init_frozen(torch, cfg, kill_blocks=False)
 
     def make_engine():
-        return ServingEngine(cfg, params, max_len=256, batch_slots=4,
-                             prefill_chunk=16, device=dev)
+        return dense_engine(torch, cfg, params)
 
     make_engine().run([Request(uid=-1, prompt=np.arange(8, dtype=np.int32),
                                max_new_tokens=2)])          # warm-up, not measured
@@ -956,7 +1061,88 @@ def engine_phase(torch, cfg, profile: bool = False) -> dict:
     print("engine: layer-0 w_gate at N=20 equal to its plain version", flush=True)
     if profile:
         profile_decode(torch, cfg, make_engine, Request)
-    return {"launches": run["launches"]["tsar_matmul"]}
+    return run
+
+
+def policy_phase(torch, cfg, params, flat_run: dict) -> dict:
+    """The dense phase's 8 requests through the ``chunked`` and ``whole``
+    policies on the same params: greedy tokens equal to the ``flat`` run's,
+    and each run's launch counts equal its plan's prediction for the row
+    counts it ran (slots x chunk, prompt lengths)."""
+    from repro_torch.serving import Request
+
+    runs = {"flat": flat_run}
+    for policy in POLICIES[1:]:
+        engine = dense_engine(torch, cfg, params, policy=policy)
+        engine.warmup(seq_len=64)
+        runs[policy] = run_path(torch, engine, make_requests(Request, cfg),
+                                f"policy {policy}")
+        same_tokens(torch, runs["flat"], runs[policy], f"policy flat vs {policy}")
+    print("policies: greedy tokens equal across " + ", ".join(POLICIES) + " | " + " | ".join(
+        f"{pol}: prefill {r['prefill_ms']:.2f} ms/call, decode {r['decode_ms']:.2f} ms/step, "
+        f"TTFT p50 {r['ttft_ms']:.1f} ms, TPOT p50 {r['tpot_ms']:.2f} ms"
+        for pol, r in runs.items()), flush=True)
+    return runs
+
+
+def prefix_requests(request_cls, cfg) -> list:
+    """The prefix phase's traffic: 8 requests in 2 groups sharing a
+    96-token system prompt (6 full blocks of 16), each with a suffix of
+    16-48 tokens (numpy seed 0), 16 new tokens each."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    systems = [rng.integers(0, cfg.vocab_size, size=96, dtype=np.int32) for _ in range(2)]
+    return [request_cls(uid=i, prompt=np.concatenate([
+                systems[i % 2], rng.integers(0, cfg.vocab_size, size=int(rng.integers(16, 49)),
+                                             dtype=np.int32)]),
+                        max_new_tokens=16) for i in range(8)]
+
+
+# A pool of 27 blocks of 16 (and scratch block 0) under the prefix traffic:
+# 6 preemptions with the prefix cache on.  The schedule depends on lengths
+# only, so it was found on the CPU with the reduced widths and this vocab.
+TIGHT_KV_BLOCKS = 28
+
+
+def prefix_phase(torch, cfg, params) -> dict:
+    """Shared-prefix traffic on a cold engine, a warm one (prefix cache on)
+    and a warm one whose pool is tight enough to preempt: equal greedy
+    tokens, fewer prefill tokens planned warm, no block leaked."""
+    from repro_torch.serving import Request
+
+    runs, engines = {}, {}
+    for label, kw in (("cold", {}), ("warm", {"prefix_cache": True}),
+                      ("warm, tight pool", {"prefix_cache": True,
+                                            "kv_blocks": TIGHT_KV_BLOCKS})):
+        engine = engines[label] = dense_engine(torch, cfg, params, **kw)
+        engine.warmup(seq_len=160)
+        runs[label] = run_path(torch, engine, prefix_requests(Request, cfg), f"prefix {label}")
+        engine.kv.check()
+        if engine.prefix is None:
+            _require(engine.kv.blocks_in_use == 0, f"prefix {label}: blocks leaked")
+        else:
+            engine.prefix.check()
+            _require(engine.kv.blocks_in_use == engine.prefix.cached_blocks,
+                     f"prefix {label}: {engine.kv.blocks_in_use} blocks in use, "
+                     f"{engine.prefix.cached_blocks} cached")
+        if label != "cold":
+            same_tokens(torch, runs["cold"], runs[label], f"prefix cold vs {label}")
+    cold, warm, tight = engines.values()
+    _require(warm.sched.cached_tokens_skipped > 0, "warm engine skipped no cached tokens")
+    _require(warm.sched.prefill_tokens_planned < cold.sched.prefill_tokens_planned,
+             f"warm planned {warm.sched.prefill_tokens_planned} prefill tokens, cold "
+             f"{cold.sched.prefill_tokens_planned}")
+    _require(tight.stats["preemptions"] > 0, "the tight pool did not preempt")
+    print("prefix: greedy tokens equal cold / warm / warm with a tight pool | " + " | ".join(
+        f"{label}: prefill tokens planned {eng.sched.prefill_tokens_planned}, cached "
+        f"tokens skipped {eng.sched.cached_tokens_skipped}, hit rate "
+        f"{eng.stats.get('prefix_hit_rate', 0.0):.3f}, hit tokens "
+        f"{eng.stats.get('prefix_hit_tokens', 0)}, preemptions {eng.stats['preemptions']}, "
+        f"steps {eng.stats['steps']}, prefill {runs[label]['prefill_ms']:.2f} ms/step, "
+        f"decode {runs[label]['decode_ms']:.2f} ms/step, TTFT p50 "
+        f"{runs[label]['ttft_ms']:.1f} ms" for label, eng in engines.items()), flush=True)
+    return runs
 
 
 def sparse_engine_phase(torch, cfg) -> dict:
@@ -1008,8 +1194,7 @@ def sparse_engine_phase(torch, cfg) -> dict:
         eng = make_engine(plan)
         check = run_path(torch, eng, make_requests(Request, cfg),
                          f"sparse checkpoint, {label} plan")
-        _require(check["tokens"] == run["tokens"],
-                 f"tokens of the {label} plan differ from the main sparse run's")
+        same_tokens(torch, run, check, f"sparse checkpoint, the main run vs the {label} plan")
         decode_ms[label].append(eng.stats["decode_s"]
                                 / eng.metrics.get("decode_steps").value * 1e3)
     print("sparse engine: greedy tokens equal across the tsar_sparse_padded and "
@@ -1152,8 +1337,13 @@ def main() -> int:
     sparse = sparse_kernel_phase(torch, cfg)
     lut_res = lut_kernel_phase(torch, cfg)
     compact = compact_kernel_phase(torch, cfg)
-    # 7-9. paths, each run with the launch counts zeroed just before it
-    launches = engine_phase(torch, cfg, profile=args.profile)["launches"]
+    # 7-11. paths, each run with the launch counts zeroed just before it
+    params = init_frozen(torch, cfg, kill_blocks=False)
+    flat_run = engine_phase(torch, cfg, params, profile=args.profile)
+    launches = flat_run["launches"]["tsar_matmul"]
+    policy_phase(torch, cfg, params, flat_run)
+    prefix_phase(torch, cfg, params)
+    del params, flat_run
     cpu_agreement(torch, cfg)
     sparse_launches = sparse_engine_phase(torch, cfg)["launches"]
     bl_launches = bitlinear_phase(torch, cfg)["launches"]

@@ -7,8 +7,10 @@
 PyTorch path on the CPU.  Weights are random (seed 0): nothing is
 downloaded.  ``--sparse`` and ``--sparse-block`` set the freeze's padded
 block pools; ``--plan-file`` loads an execution plan (the reference's JSON
-format) or saves the compiled one there, ``--save-plan`` also writes it, and
-``--print-plan`` prints the per-layer table.
+format) or saves the compiled one there, ``--save-plan`` also writes it,
+``--print-plan`` prints the per-layer table, and ``--prefix-cache
+[CAPACITY_BLOCKS]`` turns on prefix-caching KV reuse (the value caps the
+cached blocks).
 """
 from __future__ import annotations
 
@@ -48,6 +50,10 @@ def main(argv=None):
                     help="also write the engine's plan JSON here after init")
     ap.add_argument("--print-plan", action="store_true",
                     help="print the per-layer, per-bucket plan table")
+    ap.add_argument("--prefix-cache", nargs="?", const=True, default=False,
+                    type=int, metavar="CAPACITY_BLOCKS",
+                    help="enable prefix-caching KV reuse; optional value "
+                         "caps the cached-block footprint (LRU-evicted)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -67,7 +73,8 @@ def main(argv=None):
         print(f"plan: loaded {args.plan_file} ({len(plan.layers)} layers, "
               f"buckets {list(plan.buckets)})")
     engine = ServingEngine(cfg, params, max_len=args.max_len,
-                           batch_slots=args.slots, plan=plan, device=dev)
+                           batch_slots=args.slots, plan=plan,
+                           prefix_cache=args.prefix_cache, device=dev)
     if plan is None and args.plan_file:
         engine.plan.save(args.plan_file)
         print(f"plan: compiled and saved to {args.plan_file}")
@@ -93,6 +100,10 @@ def main(argv=None):
     print(f"TTFT p50/p99 {t['p50'] * 1e3:.0f}/{t['p99'] * 1e3:.0f}ms | "
           f"TPOT p50/p99 {p['p50'] * 1e3:.2f}/{p['p99'] * 1e3:.2f}ms | "
           f"steps {engine.stats['steps']}")
+    if engine.prefix is not None:
+        print(f"prefix cache: hit rate {engine.stats['prefix_hit_rate']:.2f} | "
+              f"{engine.stats['cached_blocks']} cached blocks | "
+              f"{engine.stats['prefix_evictions']} evictions")
     return engine, reqs
 
 

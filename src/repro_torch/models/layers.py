@@ -6,9 +6,9 @@ Params are plain dicts of tensors.  Every projection goes through
 hand-written kernels and the active execution plan), ``{'wd'}`` = plain
 dense fp.
 
-Only the flat token-packed attention branch (the serving engine's ``flat``
-policy) is ported; the legacy-decode, chunked and full-sequence branches,
-and the latent ``{'w'}`` QAT forward, are later slices.
+Attention has the reference's four branches (flat token-packed,
+synchronous decode, chunked append, full sequence).  Cross-attention
+(``kv_x``, enc-dec) and the latent ``{'w'}`` QAT forward are later slices.
 """
 from __future__ import annotations
 
@@ -127,8 +127,13 @@ def pack_linear(p: dict, lp=None, *, name: str | None = None,
 # ---------------------------------------------------------------------------
 
 def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm.  The mean square is summed in float64 and rounded once to
+    float32: on the GPU a float32 row reduction's order follows the number
+    of rows in the call, which differs per step layout (see
+    :func:`attention`); the float64 sums differ far below a float32 ulp."""
     xf = x.to(torch.float32)
-    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf.to(torch.float64)), dim=-1,
+                     keepdim=True).to(torch.float32)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + p["g"])).to(x.dtype)
 
@@ -156,8 +161,14 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Attention (flat token-packed branch)
+# Attention
 # ---------------------------------------------------------------------------
+
+# Query-block size for long sequences: queries are attended block by block
+# above it, which bounds the transient (Sq, T) score tile at
+# B*H*Q_CHUNK*T elements per layer.
+Q_CHUNK = 1024
+
 
 def _split_heads(x: torch.Tensor, n_heads: int, dh: int) -> torch.Tensor:
     return x.reshape(tuple(x.shape[:-1]) + (n_heads, dh))
@@ -175,23 +186,62 @@ def _flat_write(c: torch.Tensor, u: torch.Tensor, widx: torch.Tensor) -> torch.T
     return flat[:nb * vtok].reshape(c.shape)
 
 
-def attention(cfg, p: dict, x: torch.Tensor, *, pos: torch.Tensor, is_global: bool,
-              cache: dict, slot: torch.Tensor) -> tuple[torch.Tensor, dict]:
-    """Flat token-packed attention (the ``flat`` serving policy).
+def write_rows(c: torch.Tensor, u: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
+    """A copy of the cache view ``c`` (B, T, Hk, Dh) with each slot's S new
+    rows ``u`` (B, S, Hk, Dh) written contiguously from ``start`` (B,).  Like
+    the reference's ``dynamic_update_slice``, a start past ``T - S`` is
+    clamped so the rows fit."""
+    b, s = u.shape[0], u.shape[1]
+    start = start.to(device=c.device, dtype=torch.long).clamp(0, c.shape[1] - s)
+    rows = start[:, None] + torch.arange(s, device=c.device)
+    out = c.clone()
+    out[torch.arange(b, device=c.device)[:, None], rows] = u.to(c.dtype)
+    return out
 
-    x (1, T, D) is a ragged batch of T tokens from many slots packed along
-    the sequence axis; ``slot``/``pos`` (T,) are per-token coordinates into
-    the (B, Vtok) cache view, padding rows carrying the slot sentinel B.
-    Each token's K/V row is written to its own (slot, pos) cell and
-    attention is segment-masked, so a token sees exactly its own slot's
-    causal prefix.  Returns (out (1, T, D), updated {'k','v'} view).
+
+def _windowed(cfg, valid: torch.Tensor, kpos: torch.Tensor, qpos: torch.Tensor,
+              is_global: bool) -> torch.Tensor:
+    """``valid`` narrowed to the sliding window on local layers."""
+    if not cfg.window_pattern or is_global:
+        return valid
+    return valid & (kpos > qpos - cfg.window_size)
+
+
+def attention(cfg, p: dict, x: torch.Tensor, *, pos: torch.Tensor, is_global: bool,
+              causal: bool = True, cache: dict | None = None, cache_len=None,
+              slot: torch.Tensor | None = None,
+              return_kv: bool = False) -> tuple[torch.Tensor, dict | tuple | None]:
+    """Self-attention with GQA, RoPE, qk-norm, the attention softcap and
+    sliding-window masking on local layers.  x (B, S, D).  The branch
+    follows the cache arguments, as in the reference:
+
+    * ``cache`` and ``slot`` (flat token-packed, the ``flat`` serving
+      policy): x (1, T, D) is a ragged batch of T tokens from many slots;
+      ``slot``/``pos`` (T,) are per-token coordinates into the (B, Vtok)
+      cache view, padding rows carrying the slot sentinel B.  Each token's
+      K/V row goes to its own (slot, pos) cell and the token attends over
+      its own slot's row of the view, causally: it sees exactly its slot's
+      prefix;
+    * ``cache`` and a scalar ``cache_len`` (synchronous decode): the new
+      rows are written at ``cache_len`` in every slot and attend over the
+      prefix up to it;
+    * ``cache`` and a (B,) ``cache_len`` (chunked append, the ``chunked``
+      policy): each slot's S rows are written from its own offset, and
+      ``pos`` (B, S) or (S,) carries absolute query positions; the mask is
+      causal in absolute position, so a first chunk may start past a forked
+      prefix and rows beyond a slot's live length are never attended;
+    * no cache (full sequence): causal (or unmasked) over the S tokens;
+      ``return_kv`` returns their (k, v) for a prefill to store.
+
+    Returns (out (B, S, D), the updated {'k','v'} view), or (out, (k, v))
+    with ``return_kv``; the view is None without a cache.
     """
     h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = h // hk
     b, s, _ = x.shape
 
-    q = _split_heads(linear(p["wq"], x), h, dh)         # (1,T,H,Dh)
-    k = _split_heads(linear(p["wk"], x), hk, dh)        # (1,T,Hk,Dh)
+    q = _split_heads(linear(p["wq"], x), h, dh)         # (B,S,H,Dh)
+    k = _split_heads(linear(p["wk"], x), hk, dh)        # (B,S,Hk,Dh)
     v = _split_heads(linear(p["wv"], x), hk, dh)
     if "qn" in p:
         q = rmsnorm(p["qn"], q, cfg.norm_eps)
@@ -199,36 +249,86 @@ def attention(cfg, p: dict, x: torch.Tensor, *, pos: torch.Tensor, is_global: bo
     q = rope(q, pos, cfg.rope_theta)
     k = rope(k, pos, cfg.rope_theta)
 
-    nb, vtok = cache["k"].shape[0], cache["k"].shape[1]
-    # Explicit flat write index; padding rows go to the dump row nb*vtok.
-    dump = torch.full_like(pos, nb * vtok)
-    widx = torch.where(slot < nb, slot * vtok + pos, dump)
-    ck = _flat_write(cache["k"], k[0], widx)
-    cv = _flat_write(cache["v"], v[0], widx)
-    new_cache = {"k": ck, "v": cv}
+    new_cache = None
+    if cache is not None and slot is not None:
+        nb, vtok = cache["k"].shape[0], cache["k"].shape[1]
+        # Explicit flat write index; padding rows go to the dump row nb*vtok.
+        dump = torch.full_like(pos, nb * vtok)
+        widx = torch.where(slot < nb, slot * vtok + pos, dump)
+        ck = _flat_write(cache["k"], k[0], widx)
+        cv = _flat_write(cache["v"], v[0], widx)
+        new_cache = {"k": ck, "v": cv}
+        # Each token attends over its own slot's Vtok key row, as a chunked
+        # or decode query does (the reference flattens the view to one
+        # B*Vtok key axis under a segment mask: the same keys, B times the
+        # scores).  The T tokens become T one-query rows.
+        rows = slot.clamp(max=nb - 1)
+        k, v, q = ck[rows], cv[rows], q[0][:, None]         # (T,Vtok,Hk,Dh), (T,1,H,Dh)
+        b, s = q.shape[0], 1
+        kpos = torch.arange(vtok, device=x.device)[None, :]
+        valid = (slot < nb)[:, None] & (kpos <= pos[:, None])
+        valid = _windowed(cfg, valid, kpos, pos[:, None], is_global)
+        # Padding queries (slot == B) match no key: their softmax row is
+        # uniform over the finite masked scores -- garbage, never emitted.
+        mask = valid[:, None, None, None, :]                # (T,1,1,1,Vtok)
+    elif cache is not None and torch.as_tensor(cache_len).ndim == 0:
+        n_past = int(cache_len)
+        start = torch.full((b,), n_past, dtype=torch.long)
+        ck = write_rows(cache["k"], k, start)
+        cv = write_rows(cache["v"], v, start)
+        new_cache = {"k": ck, "v": cv}
+        k, v = ck, cv
+        kpos = torch.arange(k.shape[1], device=x.device)
+        valid = _windowed(cfg, kpos <= n_past, kpos, n_past, is_global)
+        mask = valid[None, None, None, None, :]             # (1,1,1,1,T)
+    elif cache is not None:
+        ck = write_rows(cache["k"], k, cache_len)
+        cv = write_rows(cache["v"], v, cache_len)
+        new_cache = {"k": ck, "v": cv}
+        k, v = ck, cv
+        kpos = torch.arange(k.shape[1], device=x.device)[None, None, :]
+        qabs = (pos if pos.ndim == 2 else pos[None, :].expand(b, s))[:, :, None]
+        valid = _windowed(cfg, kpos <= qabs, kpos, qabs, is_global)   # (B,S,T)
+        mask = valid[:, None, None, :, :]                   # (B,1,1,S,T)
+    elif causal:
+        qpos, kpos = pos[:, None], pos[None, :]
+        mask = _windowed(cfg, kpos <= qpos, kpos, qpos, is_global)[None, None, None]
+    else:
+        mask = None
 
-    t = nb * vtok
-    kf = ck.reshape((1, t) + tuple(ck.shape[2:]))
-    vf = cv.reshape((1, t) + tuple(cv.shape[2:]))
-    kidx = torch.arange(t, device=x.device)
-    kslot = kidx // vtok
-    kpos = kidx % vtok
-    valid = (kslot[None, :] == slot[:, None]) & (kpos[None, :] <= pos[:, None])
-    if cfg.window_pattern:
-        in_win = kpos[None, :] > (pos[:, None] - cfg.window_size)
-        valid = valid & (bool(is_global) | in_win)
-    # Padding queries (slot == B) match no key: their softmax row is uniform
-    # over the finite masked scores -- garbage, but never NaN, never emitted.
-    mask = valid[None, None, None, :, :]                # (1,1,1,T,B*Vtok)
+    # Scores, softmax and the weighted sum run in float64 and the context is
+    # rounded once to x's dtype.  The policies and the prefix cache batch a
+    # token's query with different neighbours (T flat tokens, B x C chunk
+    # rows, a whole prompt over its own keys), and on the GPU the float32
+    # batched matmuls pick their reduction order by those shapes: a token's
+    # context then moves by an ulp between layouts, enough to move an int8
+    # activation code downstream and, over many layers, a greedy token.  The
+    # float64 results differ far below a float32 ulp, so rounding them once
+    # gives every layout the same bits with high probability (not
+    # certainty: a float64 value within its own error of a float32 rounding
+    # boundary can still round either way).
+    qg = q.reshape(b, s, hk, g, dh).to(torch.float64)
+    k64, v64 = k.to(torch.float64), v.to(torch.float64)
 
-    qg = q.reshape(b, s, hk, g, dh)
-    scores = torch.einsum("bshgd,bthd->bhgst", qg, kf.to(qg.dtype))
-    scores = scores / math.sqrt(dh)
-    scores = softcap(scores, cfg.attn_softcap)
-    scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
-    probs = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)
-    ctx = torch.einsum("bhgst,bthd->bshgd", probs, vf.to(probs.dtype))
-    out = linear(p["wo"], ctx.reshape(b, s, h * dh))
+    def attend(qc: torch.Tensor, maskc: torch.Tensor | None) -> torch.Tensor:
+        """One query block (B, Sq, Hk, G, Dh) against the full K/V."""
+        scores = torch.einsum("bshgd,bthd->bhgst", qc, k64) / math.sqrt(dh)
+        scores = softcap(scores, cfg.attn_softcap)
+        if maskc is not None:
+            scores = torch.where(maskc, scores, torch.finfo(scores.dtype).min)
+        probs = torch.softmax(scores, dim=-1)
+        return torch.einsum("bhgst,bthd->bshgd", probs, v64).to(x.dtype)
+
+    # Long sequences: one query block at a time, each against its full key
+    # row (exact), so the (Sq, T) score tile stays bounded.
+    if s > Q_CHUNK and s % Q_CHUNK == 0 and mask is not None:
+        ctx = torch.cat([attend(qg[:, i:i + Q_CHUNK], mask[..., i:i + Q_CHUNK, :])
+                         for i in range(0, s, Q_CHUNK)], dim=1)
+    else:
+        ctx = attend(qg, mask)
+    out = linear(p["wo"], ctx.reshape(x.shape[0], x.shape[1], h * dh))
+    if return_kv:
+        return out, (k, v)
     return out, new_cache
 
 

@@ -1,6 +1,10 @@
 """Config -> model dispatch and the block-paged KV cache plumbing (port of
 ``repro/models/model_zoo.py``).
 
+The inference entry points run under whatever execution plan the caller
+activated (``repro_torch.plan.runtime.activate``, as the serving engine does
+around every call); the reference's ``plan=`` argument is that context.
+
 The attention K/V leaves are a pool of fixed-size token blocks,
 (L, num_blocks, block_size, Hkv, Dh); per-slot block tables map a slot's
 logical positions onto pool blocks.  Block 0 is reserved scratch: table
@@ -9,6 +13,7 @@ garbage that the attention mask never reads.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -19,6 +24,35 @@ PAGED_LEAVES = ("k", "v")
 
 def init_params(cfg, generator: torch.Generator, device="cuda") -> dict:
     return transformer.init_params(cfg, generator, device)
+
+
+def forward(cfg, params, batch):
+    """Teacher-forced logits and aux; see ``transformer.forward``."""
+    return transformer.forward(cfg, params, batch)
+
+
+def init_cache(cfg, batch_size: int, max_len: int, dtype=torch.float32, device="cuda"):
+    return transformer.init_cache(cfg, batch_size, max_len, dtype, device)
+
+
+def prefill(cfg, params, batch, cache):
+    """Whole-prompt prefill; see ``transformer.prefill``."""
+    return transformer.prefill(cfg, params, batch, cache)
+
+
+def decode_step(cfg, params, tokens, cache, t):
+    """One synchronous decode step at length ``t``; see
+    ``transformer.decode_step``."""
+    return transformer.decode_step(cfg, params, tokens, cache, t)
+
+
+def chunk_step(cfg, params, tokens, pos, cache, lengths):
+    """Per-slot chunked-append step (paged serving engine, ``chunked``
+    policy): tokens/pos (B, C), lengths (B,) per-slot write offsets.  A
+    slot's first chunk may start at a nonzero ``lengths[i]`` against a
+    pre-populated block table (prefix-cache fork).  See
+    ``transformer.chunk_step``."""
+    return transformer.chunk_step(cfg, params, tokens, pos, cache, lengths)
 
 
 def flat_step(cfg, params, tokens, slot, pos, cache, emit_row):
@@ -53,19 +87,34 @@ def gather_cache_view(pools: dict, block_table: torch.Tensor) -> dict:
     return view
 
 
-def scatter_cache_view(pools: dict, block_table: torch.Tensor, view: dict) -> dict:
+def first_writers(block_table: np.ndarray, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The write index of :func:`scatter_cache_view` for the host block
+    table (B, VB): the distinct pool blocks it holds and, for each, the flat
+    table position of its first entry (row-major: slot 0's entries first),
+    as int64 tensors on ``device``.  Computed on the host, where the table
+    is built, so a step's scatter needs no device synchronisation."""
+    blocks, first = np.unique(np.asarray(block_table).reshape(-1), return_index=True)
+    return (torch.as_tensor(blocks, dtype=torch.int64).to(device),
+            torch.as_tensor(first, dtype=torch.int64).to(device))
+
+
+def scatter_cache_view(pools: dict, writers: tuple, view: dict) -> dict:
     """Write an updated view back into the block pools, in place (the
     reference returns new pools; updating in place saves a pool copy per
     step).  Returns ``pools``.
 
-    Table entries repeat only block 0 (scratch), so the order in which
-    duplicate writes land does not matter: scratch is never read as live
-    data.  That stops holding once the prefix cache lets two slots' tables
-    share a real block; the scatter must then write each block once.
+    Tables repeat pool blocks: scratch block 0 in their padding, and, with
+    the prefix cache, a full block that several slots forked.  Each distinct
+    block is written once, from the first slot whose table holds it
+    (``writers``, from :func:`first_writers` of the table the view was
+    gathered through), so the result does not depend on the order of
+    duplicate writes nor on the copies of a shared block agreeing in every
+    slot's view.
     """
-    idx = block_table.long()
+    blocks, first = writers
     for name, leaf in pools.items():
         l, _, bs = leaf.shape[:3]
-        b, vb = idx.shape
-        leaf[:, idx] = view[name].reshape((l, b, vb, bs) + tuple(leaf.shape[3:]))
+        b, t = view[name].shape[1:3]
+        rows = view[name].reshape((l, b * (t // bs), bs) + tuple(leaf.shape[3:]))
+        leaf[:, blocks] = rows[:, first]
     return pools

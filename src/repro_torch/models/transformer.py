@@ -3,8 +3,15 @@
 
 Per-layer parameters are stacked along a leading ``L`` axis, as in the
 reference; the reference's ``lax.scan`` over that axis becomes a Python loop
-over the ``L`` slices.  Only the serving entry point ``flat_step`` is ported
-so far.
+over the ``L`` slices.  Entry points:
+
+* ``forward``     -- full-sequence logits (no cache);
+* ``prefill``     -- full-sequence forward that also fills a KV cache;
+* ``decode_step`` -- one token per slot at a shared length;
+* ``chunk_step``  -- per-slot chunks at per-slot offsets (``chunked`` policy);
+* ``flat_step``   -- one flat ragged token batch (``flat`` policy).
+
+``loss_fn`` and rematerialization wait for the training slice.
 """
 from __future__ import annotations
 
@@ -73,16 +80,50 @@ def layer_slice(tree, i: int):
 # Blocks
 # ---------------------------------------------------------------------------
 
-def _block(cfg, p: dict, x: torch.Tensor, *, flag: bool, pos: torch.Tensor,
-           cache: dict, slot: torch.Tensor) -> tuple[torch.Tensor, dict]:
-    """One dense layer in the flat decode layout (the reference's
-    ``mode="decode"`` with ``slot``).  Returns (x, updated cache)."""
+def _dense_only(cfg, what: str) -> None:
+    if cfg.family != "dense" or cfg.is_moe:
+        raise NotImplementedError(
+            f"{what}: only the dense family is ported (got {cfg.family!r})")
+
+
+def _block(cfg, p: dict, x: torch.Tensor, *, flag: bool, pos: torch.Tensor, mode: str,
+           cache: dict | None = None, cache_len=None,
+           slot: torch.Tensor | None = None) -> tuple[torch.Tensor, dict | None]:
+    """One dense layer.  ``mode``: ``"fwd"`` (no cache), ``"prefill"`` (the
+    prompt's K/V written to ``cache`` from row 0) or ``"decode"`` (attention
+    against ``cache`` with ``cache_len`` or ``slot``).  Returns (x, updated
+    cache or None)."""
     h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    attn_out, new_cache = layers.attention(cfg, p["attn"], h, pos=pos,
-                                           is_global=flag, cache=cache, slot=slot)
+    new_cache = None
+    if mode == "decode":
+        attn_out, new_cache = layers.attention(cfg, p["attn"], h, pos=pos, is_global=flag,
+                                               cache=cache, cache_len=cache_len, slot=slot)
+    elif mode == "prefill":
+        attn_out, (k, v) = layers.attention(cfg, p["attn"], h, pos=pos, is_global=flag,
+                                            return_kv=True)
+        zero = torch.zeros((x.shape[0],), dtype=torch.long)
+        new_cache = {"k": layers.write_rows(cache["k"], k, zero),
+                     "v": layers.write_rows(cache["v"], v, zero)}
+    else:
+        attn_out, _ = layers.attention(cfg, p["attn"], h, pos=pos, is_global=flag)
     x = x + attn_out
     h2 = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + layers.mlp(p["mlp"], h2), new_cache
+
+
+def _layers(cfg, params: dict, x: torch.Tensor, cache: dict | None,
+            **kw) -> tuple[torch.Tensor, dict | None]:
+    """x through every layer (the reference's scan over the stacked
+    params); the per-layer caches come back stacked along ``L``."""
+    new = []
+    for i in range(cfg.n_layers):
+        x, nc = _block(cfg, layer_slice(params["blocks"], i), x,
+                       flag=cfg.layer_is_global(i),
+                       cache=None if cache is None else layer_slice(cache, i), **kw)
+        new.append(nc)
+    if cache is None:
+        return x, None
+    return x, {name: torch.stack([nc[name] for nc in new]) for name in new[0]}
 
 
 def _head(cfg, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -98,6 +139,76 @@ def _head(cfg, params: dict, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+def _embed(cfg, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return (params["embed"][tokens] * math.sqrt(cfg.d_model)).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+def forward(cfg, params: dict, batch: dict) -> tuple[torch.Tensor, float]:
+    """Teacher-forced logits (B, S, V) of ``batch["tokens"]`` (B, S), and the
+    auxiliary loss (0 for the dense family)."""
+    _dense_only(cfg, "forward")
+    x = _embed(cfg, params, batch["tokens"])
+    pos = torch.arange(x.shape[1], device=x.device)
+    x, _ = _layers(cfg, params, x, None, pos=pos, mode="fwd")
+    return _head(cfg, params, x), 0.0
+
+
+def init_cache(cfg, batch_size: int, max_len: int, dtype=torch.float32,
+               device="cuda") -> dict:
+    """Stacked per-layer K/V caches (L, B, max_len, Hkv, Dh), zero-filled."""
+    _dense_only(cfg, "init_cache")
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def prefill(cfg, params: dict, batch: dict, cache: dict) -> tuple[torch.Tensor, dict]:
+    """Run the prompt ``batch["tokens"]`` (B, S) and write its K/V into
+    ``cache`` rows [0, S).  Returns (last-position logits (B, 1, V), cache);
+    the head runs on the last row only."""
+    _dense_only(cfg, "prefill")
+    x = _embed(cfg, params, batch["tokens"])
+    pos = torch.arange(x.shape[1], device=x.device)
+    x, new_cache = _layers(cfg, params, x, cache, pos=pos, mode="prefill")
+    return _head(cfg, params, x[:, -1:, :]), new_cache
+
+
+def decode_step(cfg, params: dict, tokens: torch.Tensor, cache: dict,
+                t) -> tuple[torch.Tensor, dict]:
+    """One decode step: ``tokens`` (B, 1) at the shared length ``t``.
+    Returns (logits (B, 1, V), updated cache)."""
+    _dense_only(cfg, "decode_step")
+    x = _embed(cfg, params, tokens)
+    pos = torch.tensor([int(t)], device=x.device)
+    x, new_cache = _layers(cfg, params, x, cache, pos=pos, mode="decode", cache_len=int(t))
+    return _head(cfg, params, x), new_cache
+
+
+def chunk_step(cfg, params: dict, tokens: torch.Tensor, pos: torch.Tensor, cache: dict,
+               lengths: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """Chunked-append step for the paged serving engine (``chunked``
+    policy).
+
+    tokens (B, C) -- per-slot rows: a prefill chunk, one decode token, or
+    padding; pos (B, C) -- absolute positions (padding clamped); lengths
+    (B,) -- per-slot K/V write offsets.  A slot's first chunk may start at a
+    nonzero offset over a pre-populated cache (a prefix-cache fork):
+    attention masks by absolute position, so the chunk attends over the
+    forked prefix as if the slot had prefilled it.
+
+    Returns (logits (B, C, V), updated cache); the head runs on every row.
+    """
+    _dense_only(cfg, "chunk_step")
+    x = _embed(cfg, params, tokens)
+    x, new_cache = _layers(cfg, params, x, cache, pos=pos, mode="decode", cache_len=lengths)
+    return _head(cfg, params, x), new_cache
+
+
 def flat_step(cfg, params: dict, tokens: torch.Tensor, slot: torch.Tensor,
               pos: torch.Tensor, cache: dict,
               emit_row: torch.Tensor) -> tuple[torch.Tensor, dict]:
@@ -110,18 +221,9 @@ def flat_step(cfg, params: dict, tokens: torch.Tensor, slot: torch.Tensor,
     Returns (logits (B, V) gathered at ``emit_row``, updated cache).  The
     head runs on B rows, not T.
     """
-    if cfg.family != "dense" or cfg.is_moe:
-        raise NotImplementedError(
-            f"flat_step: only the dense family is ported (got {cfg.family!r})")
-    x = params["embed"][tokens][None, :, :] * math.sqrt(cfg.d_model)
-    x = x.to(torch.float32)
-    new_k, new_v = [], []
-    for i in range(cfg.n_layers):
-        x, nc = _block(cfg, layer_slice(params["blocks"], i), x,
-                       flag=cfg.layer_is_global(i), pos=pos,
-                       cache=layer_slice(cache, i), slot=slot)
-        new_k.append(nc["k"])
-        new_v.append(nc["v"])
+    _dense_only(cfg, "flat_step")
+    x = _embed(cfg, params, tokens)[None, :, :]
+    x, new_cache = _layers(cfg, params, x, cache, pos=pos, mode="decode", slot=slot)
     sel = x[0, emit_row]                       # (B, D) emitting rows only
     logits = _head(cfg, params, sel[None])     # (1, B, V)
-    return logits[0], {"k": torch.stack(new_k), "v": torch.stack(new_v)}
+    return logits[0], new_cache

@@ -1,21 +1,30 @@
 """Serving engine: token-packed continuous batching over a block-paged KV
 cache (port of ``repro/serving/engine.py``).
 
-Every engine step is one flat ``(T,)`` model call (the ``flat`` policy):
-the scheduler packs one decode token per running request plus fair-shared
-prefill chunks from several prompts, budgeted purely in tokens
-(``token_budget``), and the step runs gather -> ``flat_step`` -> scatter ->
-sampling.  Weights are frozen to 2-bit T-SAR planes (``packed=True``), with
-padded block-sparse pools where a layer stack's blocks die
-(``sparse="auto"``); an execution plan compiled once at init (or supplied)
-picks each projection's kernel, and the step runs inside it: planned
-``tsar_sparse_padded`` on a layer with pools runs the hand-written sparse
-kernel, the rest the ``tsar_matmul`` kernel.
+Policies (all three run the same per-slot-position decode math, so their
+greedy tokens agree):
 
-Ported so far: ``policy="flat"`` with packed weights, plans, the sparse
-freeze pre-pass, greedy and temperature sampling, and the registry-backed
-``stats``.  The prefix cache, the ``chunked``/``whole`` policies and latent
-(``packed=False``) serving are later slices.
+* ``flat`` (the default): every step is one flat ``(T,)`` model call; the
+  scheduler packs one decode token per running request plus fair-shared
+  prefill chunks from several prompts, budgeted purely in tokens
+  (``token_budget``), and the step runs gather -> ``flat_step`` -> scatter
+  -> sampling;
+* ``chunked``: the rectangular ``(B, C)`` predecessor, one prefill chunk
+  per step beside every decode token (``chunk_step``);
+* ``whole``: each admitted prompt is prefilled in one per-slot call
+  (``prefill``), then the slots decode in rectangular steps.
+
+``prefix_cache=True`` (or a block cap) forks the cached full blocks of an
+admitted prompt instead of recomputing them (``serving.prefix_cache``; the
+``flat`` and ``chunked`` policies only).  Weights are frozen to 2-bit
+T-SAR planes (``packed=True``), with padded block-sparse pools where a
+layer stack's blocks die (``sparse="auto"``); an execution plan compiled
+once at init (or supplied) picks each projection's kernel, and every model
+call runs inside it: planned ``tsar_sparse_padded`` on a layer with pools
+runs the hand-written sparse kernel, the rest the ``tsar_matmul`` kernel.
+
+Latent (``packed=False``) serving and the non-dense families are later
+slices.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ from repro_torch.obs import NULL_TRACER, MetricsRegistry, StatsView
 from repro_torch.plan import BatchProfile, ModelPlan, compile_plan
 from repro_torch.plan import runtime as plan_runtime
 from repro_torch.serving.kv_cache import PagedKVCache
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.scheduler import ChunkedScheduler, Preempt, SlotState
 from repro_torch.sparse import format as sparse_format
 from repro_torch.sparse import stats as sparse_stats
@@ -193,11 +203,37 @@ def packed_fraction(params) -> float:
     return packed / max(total, 1)
 
 
-def _flat_call(cfg, params, pools, table, tokens, slot, pos, emit_row):
+# ---------------------------------------------------------------------------
+# Step bodies: gather -> model -> scatter (the pools are updated in place)
+# ---------------------------------------------------------------------------
+
+def _chunk_call(cfg, params, pools, table, writers, tokens, pos, lengths, emit_idx):
+    view = model_zoo.gather_cache_view(pools, table)
+    logits, view = model_zoo.chunk_step(cfg, params, tokens, pos, view, lengths)
+    pools = model_zoo.scatter_cache_view(pools, writers, view)
+    sel = logits[torch.arange(logits.shape[0], device=logits.device), emit_idx]
+    return sel, pools
+
+
+def _flat_call(cfg, params, pools, table, writers, tokens, slot, pos, emit_row):
     view = model_zoo.gather_cache_view(pools, table)
     sel, view = model_zoo.flat_step(cfg, params, tokens, slot, pos, view, emit_row)
-    pools = model_zoo.scatter_cache_view(pools, table, view)
+    pools = model_zoo.scatter_cache_view(pools, writers, view)
     return sel, pools
+
+
+def _whole_prefill_call(cfg, params, pools, table, writers, batch, slot: int):
+    view = model_zoo.gather_cache_view(pools, table)
+    slot_view = {name: leaf[:, slot:slot + 1] for name, leaf in view.items()}
+    logits, slot_view = model_zoo.prefill(cfg, params, batch, slot_view)
+    for name, leaf in view.items():
+        leaf[:, slot] = slot_view[name][:, 0]
+    pools = model_zoo.scatter_cache_view(pools, writers, view)
+    return logits[:, -1, :], pools
+
+
+_CHUNKABLE_FAMILIES = ("dense", "moe")
+_POLICIES = ("flat", "chunked", "whole")
 
 
 def _later_slice(what: str, slice_name: str) -> NotImplementedError:
@@ -217,12 +253,19 @@ class ServingEngine:
                  prefix_cache: bool | int = False, tracer=None, device="cuda"):
         if not packed:
             raise _later_slice("latent (packed=False) serving", "training")
-        if prefix_cache:
-            raise _later_slice("prefix_cache=", "serving/prefix_cache.py")
-        if policy not in (None, "flat"):
-            raise _later_slice(f"policy={policy!r}", "remaining attention branches")
         if cfg.family != "dense" or cfg.is_moe:
             raise _later_slice(f"family {cfg.family!r}", "other model families")
+        if policy is None:
+            policy = "flat" if cfg.family in _CHUNKABLE_FAMILIES else "whole"
+        elif policy not in _POLICIES:
+            raise ValueError(f"policy={policy!r} must be one of {_POLICIES} or None")
+        elif policy in ("flat", "chunked") and cfg.family not in _CHUNKABLE_FAMILIES:
+            # Refused rather than silently downgraded, so that a label names
+            # the policy that ran.
+            raise ValueError(
+                f"policy={policy!r} is unsupported for family {cfg.family!r}; "
+                "pass policy=None (auto) or 'whole'")
+        self.policy = policy
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = freeze_params(params, sparse=sparse, block_shape=sparse_block)
@@ -245,6 +288,15 @@ class ServingEngine:
                                num_blocks=kv_blocks, dtype=cache_dtype,
                                device=self.device)
         self.sched = ChunkedScheduler(prefill_chunk=prefill_chunk)
+        # Prefix-caching KV reuse: True turns it on, an int also caps the
+        # cached blocks (LRU-evicted above it).  A hit needs a prefill that
+        # can start at the fork boundary, so the ``whole`` policy keeps the
+        # cache off (its keys stay in ``stats``, at zero).
+        self.prefix: PrefixCache | None = None
+        if prefix_cache and self.policy in ("flat", "chunked"):
+            cap = (prefix_cache if isinstance(prefix_cache, int)
+                   and not isinstance(prefix_cache, bool) else None)
+            self.prefix = PrefixCache(self.kv, capacity_blocks=cap)
         self._queue: list[Request] = []
         self._slots: list[SlotState | None] = [None] * batch_slots
 
@@ -256,6 +308,8 @@ class ServingEngine:
         self._phase: dict[int, str] = {}
         self.sched.tracer = self.tracer
         self.kv.tracer = self.tracer
+        if self.prefix is not None:
+            self.prefix.tracer = self.tracer
         reg = self.metrics = MetricsRegistry()
         t_step = reg.counter("step_time_s", "wall seconds in engine step calls, by phase",
                              labels=("phase",))
@@ -312,6 +366,22 @@ class ServingEngine:
             "max_step_tokens": _peak(self._g_step_tokens),
         })
         self.stats.bind("rejections", *_cv(self._c_rejections))
+        if prefix_cache:
+            # The keys exist whenever the cache was requested (at zero under
+            # ``whole``) and never otherwise.
+            for key, m in (
+                ("prefix_hit_rate", reg.gauge(
+                    "prefix_hit_rate", "fraction of admitted prompt tokens served from cache")),
+                ("cached_blocks", reg.gauge(
+                    "cached_blocks", "blocks held by the prefix-cache tree")),
+                ("prefix_hit_tokens", reg.counter(
+                    "prefix_hit_tokens", "prompt tokens served from cache")),
+                ("prefix_lookups", reg.counter(
+                    "prefix_lookups", "prefix-cache forks attempted")),
+                ("prefix_evictions", reg.counter(
+                    "prefix_evictions", "cached blocks evicted")),
+            ):
+                self.stats.bind(key, *_cv(m))
 
         # Density telemetry, measured once at init from the packed planes on
         # their device (profile_density=False skips it).
@@ -320,9 +390,9 @@ class ServingEngine:
             self.stats["weight_density_mean"] = self.density["density_mean"]
             self.stats["block_density_mean"] = self.density["block_density_mean"]
 
-        # Execution plan, compiled (or supplied) once here; every step runs
-        # inside plan_runtime.activate(self.plan), and no select_kernel call
-        # happens after this constructor returns.
+        # Execution plan, compiled (or supplied) once here; every model call
+        # runs inside plan_runtime.activate(self.plan), and no select_kernel
+        # call happens after this constructor returns.
         supplied = plan is not None
         if plan is None:
             plan = compile_plan(self.params, BatchProfile(
@@ -362,7 +432,9 @@ class ServingEngine:
 
     def _admit(self):
         rej0 = self.sched.rejections
-        admitted = self.sched.admit(self._slots, self._queue, self.kv)
+        admitted = self.sched.admit(self._slots, self._queue, self.kv,
+                                    reserve_full=self.policy == "whole",
+                                    prefix_cache=self.prefix)
         if self.sched.rejections > rej0:
             self._c_rejections.inc(self.sched.rejections - rej0)
         tr = self.tracer
@@ -374,6 +446,59 @@ class ServingEngine:
             if tr.enabled:
                 tr.begin(st.req.uid, "prefill", slot=i, cached_len=st.cached_len)
                 self._phase[st.req.uid] = "prefill"
+            if self.policy == "whole":
+                self._prefill_slot(i, st)
+            # flat/chunked: the scheduler interleaves this prompt's chunks
+            # with running decodes from the next step on; a prefix-cache hit
+            # already forked the cached blocks and moved the cursor past them.
+
+    # -- prefix-cache registration -------------------------------------------
+
+    def _register_prefix(self, i: int, st: SlotState):
+        """Register slot ``i``'s cache content with the prefix cache: exactly
+        ``req.prompt + out_tokens`` cut to the live length (the last sampled
+        token's K/V row is never written).  Only full blocks join the tree,
+        so a later write to the slot's partial tail never touches a cached
+        block."""
+        if self.prefix is None:
+            return
+        req = st.req
+        content = np.concatenate([np.asarray(req.prompt, np.int32),
+                                  np.asarray(req.out_tokens, np.int32)])
+        self.prefix.insert(content[:int(self.kv.lengths[i])], self.kv.table[i])
+
+    def _sync_prefix_stats(self):
+        if self.prefix is not None:
+            self.stats.update(self.prefix.stats())
+
+    def _planned(self, fn, *args):
+        """``fn(*args)`` inside the engine's execution plan."""
+        with plan_runtime.activate(self.plan):
+            return fn(*args)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _prefill_slot(self, i: int, st: SlotState):
+        """Whole-prompt prefill of one slot through the paged cache."""
+        batch = {"tokens": self._to_device(st.prompt)[None, :]}
+        t0 = time.perf_counter()
+        sel, self.kv.pools = self._planned(_whole_prefill_call, self.cfg, self.params,
+                                           self.kv.pools, *self._tables(self.kv.max_blocks),
+                                           batch, i)
+        self._sync()
+        dt = time.perf_counter() - t0
+        self._t_prefill.inc(dt)
+        self._c_whole_prefills.inc()
+        self._g_step_tokens.set(len(st.prompt) + st.extra)
+        if self.tracer.enabled:
+            self.tracer.mark(st.req.uid, "prefill_chunk", n=len(st.prompt), start=0,
+                             whole=True)
+        self.kv.lengths[i] = len(st.prompt) + st.extra
+        st.cursor = len(st.prompt)
+        tok = int(self._sample(sel, np.array([st.req.temperature], np.float32))[0])
+        self._emit_token(i, st, tok)
 
     # -- sampling -------------------------------------------------------------
 
@@ -419,6 +544,10 @@ class ServingEngine:
                         preemptions=req.n_preempted)
                 tr.end(req.uid, "req")
                 self._phase.pop(req.uid, None)
+            # Register prompt + generated tokens (multi-turn reuse: a
+            # follow-up quoting this conversation hits them) while the slot
+            # still holds its block references.
+            self._register_prefix(i, st)
             self.kv.free_slot(i)
             self._slots[i] = None
         else:
@@ -429,31 +558,54 @@ class ServingEngine:
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.int64).to(self.device)
 
+    def _tables(self, view_blocks: int) -> tuple:
+        """The step's block table on the device and the scatter's write
+        index, both from the host table."""
+        tbl = self.kv.host_table(view_blocks)
+        return self._to_device(tbl), model_zoo.first_writers(tbl, self.device)
+
     def step(self) -> bool:
-        """One engine step: admit, then one flat prefill/decode call.
-        Returns False when there was nothing to do."""
+        """One engine step: admit (whole-prefilling admitted prompts under
+        ``whole``), then one flat (``flat``) or rectangular (``chunked``,
+        ``whole``) prefill/decode call.  Returns False when there was
+        nothing to do."""
         self._admit()
-        plan = self.sched.plan_flat(self._slots, self.kv, self.token_budget)
+        flat = self.policy == "flat"
+
+        def _plan():
+            if flat:
+                return self.sched.plan_flat(self._slots, self.kv, self.token_budget)
+            return self.sched.plan(self._slots, self.kv)
+
+        plan = _plan()
         while isinstance(plan, Preempt):
             self._preempt(plan.slot)
-            plan = self.sched.plan_flat(self._slots, self.kv, self.token_budget)
+            plan = _plan()
         if plan is None:
             return False
 
-        table = self.kv.table_view(plan.view_blocks)
+        tables = self._tables(plan.view_blocks)
         step_no = self._c_steps.value
+        # planned = the rows the step's matmuls multiply (flat: T;
+        # rectangular: the padded B*C); realized/planned is the step-budget
+        # utilization.
+        planned = plan.width if flat else self.slots * plan.chunk
         t0 = time.perf_counter()
-        with plan_runtime.activate(self.plan):
-            sel, self.kv.pools = _flat_call(
-                self.cfg, self.params, self.kv.pools, table,
+        if flat:
+            sel, self.kv.pools = self._planned(
+                _flat_call, self.cfg, self.params, self.kv.pools, *tables,
                 self._to_device(plan.tokens), self._to_device(plan.slot),
                 self._to_device(plan.pos), self._to_device(plan.emit_row))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        else:
+            sel, self.kv.pools = self._planned(
+                _chunk_call, self.cfg, self.params, self.kv.pools, *tables,
+                self._to_device(plan.tokens), self._to_device(plan.pos),
+                self._to_device(plan.lengths), self._to_device(plan.emit_idx))
+        self._sync()
         dt = time.perf_counter() - t0
 
         self._c_steps.inc()
-        self._c_planned.inc(plan.width)
+        self._c_planned.inc(planned)
         self._c_realized.inc(plan.real_tokens)
         self._g_step_tokens.set(plan.real_tokens)
         self._g_kv.set(int(self.kv.blocks_in_use))
@@ -468,13 +620,13 @@ class ServingEngine:
 
         tr = self.tracer
         if tr.enabled:
-            tr.step(dt, step=step_no, planned=plan.width,
+            tr.step(dt, step=step_no, planned=planned,
                     realized=plan.real_tokens,
                     prefill_tokens=plan.prefill_tokens,
                     decode_tokens=plan.decode_tokens,
                     kv_blocks=int(self.kv.blocks_in_use),
                     active_slots=sum(1 for s in self._slots if s is not None),
-                    kernel=self.plan.dominant_kernel(plan.width))
+                    kernel=self.plan.dominant_kernel(planned))
 
         toks = None
         if plan.emit.any():
@@ -487,18 +639,29 @@ class ServingEngine:
             if st is None or plan.n_real[i] == 0:
                 continue
             self.kv.lengths[i] += int(plan.n_real[i])
-            if plan.advances_prefill(i):
+            advanced = plan.advances_prefill(i)
+            if advanced:
                 if tr.enabled:
                     tr.mark(st.req.uid, "prefill_chunk",
                             n=int(plan.n_real[i]), start=st.cursor)
                 st.cursor += int(plan.n_real[i])
             if plan.emit[i]:
                 self._emit_token(i, st, int(toks[i]))
+            if advanced and not st.prefilling and self._slots[i] is not None:
+                # Prompt fully in cache and the request still live: register
+                # its full blocks now, so requests sharing the prefix hit it
+                # while this one decodes.  After the emit: a request that
+                # finished on its first token was registered at finish.
+                self._register_prefix(i, st)
+        self._sync_prefix_stats()
         return True
 
     def _preempt(self, i: int):
         """Recompute-style preemption: return the youngest request to the
-        queue head; its prompt + generated tokens re-prefill later."""
+        queue head; its prompt + generated tokens re-prefill later.  Its
+        full blocks are registered with the prefix cache (when attached)
+        before they are released, so the re-admission forks them back and
+        re-prefills only the partial tail."""
         st = self._slots[i]
         tr = self.tracer
         if tr.enabled:
@@ -510,6 +673,7 @@ class ServingEngine:
                     cached_len=st.cached_len)
             tr.begin(uid, "queued")
             self._phase[uid] = "queued"
+        self._register_prefix(i, st)
         self.kv.free_slot(i)
         self._slots[i] = None
         self._queue.insert(0, st.req)
@@ -520,6 +684,10 @@ class ServingEngine:
     def busy(self) -> bool:
         """True while any request is queued or resident in a slot."""
         return bool(self._queue) or any(s is not None for s in self._slots)
+
+    @property
+    def queue_len(self) -> int:
+        return len(self._queue)
 
     def run(self, requests: list[Request]) -> list[Request]:
         for r in requests:
@@ -533,11 +701,66 @@ class ServingEngine:
                     "raise kv_blocks or lower prefill_chunk/max_len")
         return requests
 
+    # -- benchmarking hooks ---------------------------------------------------
+
+    def warmup(self, seq_len: int | None = None) -> None:
+        """Run a throwaway request over the step paths (prefill width, pure
+        decode, the block-table views up to ``seq_len`` positions), then
+        :meth:`reset_run_stats`.  On the card the first call of each kernel
+        builds and loads it, so a replay's percentiles measure serving, not
+        ``nvcc``.  Needs an idle engine."""
+        if self.busy:
+            raise RuntimeError("warmup() requires an idle engine")
+        total = seq_len or (self.prefill_chunk + 3)
+        # Room for the generated tokens and the headroom position.
+        plen = max(2, min(total - 2, self.max_len - 3))
+        rng = np.random.default_rng(0x7e57)
+        prompt = rng.integers(0, self.cfg.vocab_size, size=plen, dtype=np.int32)
+        self.run([Request(uid=-1, prompt=prompt, max_new_tokens=2)])
+        self.reset_run_stats()
+
+    def reset_run_stats(self) -> None:
+        """Zero the per-run counters, drop the prefix-cache tree (a fresh one
+        takes its place) and clear trace events, keeping init-time telemetry
+        (plan and density keys).  The peak gauges are rebased to the live
+        values after the reset, so warm-up never leaks into a run's peaks.
+        Needs an idle engine."""
+        if self.busy:
+            raise RuntimeError("reset_run_stats() requires an idle engine")
+        if self.prefix is not None:
+            # All slots are free, so every cached block is evictable.
+            self.prefix.evict(self.prefix.cached_blocks, cause="reset")
+            self.prefix = PrefixCache(self.kv, capacity_blocks=self.prefix.capacity)
+            self.prefix.tracer = self.tracer
+        self.sched.prefill_tokens_planned = 0
+        self.sched.cached_tokens_skipped = 0
+        self.sched.readmissions = 0
+        self.sched.rejections = 0
+        self._g_kv.set(int(self.kv.blocks_in_use))
+        self._g_step_tokens.set(0)
+        self.metrics.reset_run()
+        self._sync_prefix_stats()
+        self.tracer.reset()
+
     # -- metrics --------------------------------------------------------------
 
     def throughput(self) -> float:
         """Steady-state decode tokens/s (pure-decode steps only)."""
         return self.stats["decode_tokens"] / max(self.stats["decode_s"], 1e-9)
+
+    def max_step_tokens(self) -> int:
+        return self.stats["max_step_tokens"]
+
+    def latency_stats(self, requests: list[Request]) -> dict:
+        """Mean and max TTFT, mean TPOT over finished requests (seconds)."""
+        ttfts = [r.ttft for r in requests if r.ttft is not None]
+        tpots = [r.tpot for r in requests if r.tpot is not None]
+
+        def mean(xs):
+            return sum(xs) / len(xs) if xs else float("nan")
+
+        return {"ttft_mean_s": mean(ttfts), "ttft_max_s": max(ttfts, default=float("nan")),
+                "tpot_mean_s": mean(tpots), "n": len(ttfts)}
 
     def latency_percentiles(self) -> dict:
         """{ttft_s, tpot_s, queue_s} -> {p50, p90, p99, mean, max, n}."""

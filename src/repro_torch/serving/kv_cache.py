@@ -195,7 +195,7 @@ class PagedKVCache:
         (bounds the distinct view shapes to O(log max_blocks)).
 
         May exceed ``max_blocks``: a chunk-wide write starting near max_len
-        must fit inside the view.  ``table_view`` pads
+        must fit inside the view.  ``host_table`` pads
         the extra columns with scratch-block entries."""
         need = max(1, self.blocks_for(max(1, n_tokens)))
         vb = 1
@@ -203,14 +203,12 @@ class PagedKVCache:
             vb *= 2
         return vb
 
-    def table_view(self, view_blocks: int) -> torch.Tensor:
-        """(slots, view_blocks) int64 block table on the pools' device."""
+    def host_table(self, view_blocks: int) -> np.ndarray:
+        """(slots, view_blocks) block table on the host."""
         if view_blocks <= self.max_blocks:
-            tbl = self.table[:, :view_blocks]
-        else:
-            pad = np.zeros((self.slots, view_blocks - self.max_blocks), np.int32)
-            tbl = np.concatenate([self.table, pad], axis=1)
-        return torch.as_tensor(tbl, dtype=torch.int64).to(self.device)
+            return self.table[:, :view_blocks]
+        pad = np.zeros((self.slots, view_blocks - self.max_blocks), np.int32)
+        return np.concatenate([self.table, pad], axis=1)
 
     # -- invariants ----------------------------------------------------------
 

@@ -39,7 +39,7 @@ from the prefix cache — or that the cache registered from the victim — are
 shared, and a direct free-list append would hand another request's live
 blocks to new writers.
 
-With a :class:`PrefixCache (not ported yet)` attached (see
+With a :class:`~repro_torch.serving.prefix_cache.PrefixCache` attached (see
 ``admit``), each admitted prompt starts its prefill at ``cached_len``: the
 fully-cached leading blocks are forked, the partial last block (and always
 at least the final prompt token) is recomputed, and the skipped tokens are

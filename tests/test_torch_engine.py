@@ -1,13 +1,14 @@
 """Port vs reference: the serving engine end to end, and the port's
 package rules.
 
-The reference ``repro.serving.ServingEngine(packed=True)`` freezes the
-reduced ``bitnet-2b-4t``; the port's engine serves the same frozen planes
-(carried across with the bridge) on the CPU.  On the same requests the
-``FlatStepPlan`` sequence, the greedy tokens and the engine counters must be
-identical.  The comparison relies on the reference step spelling every
-projection as the planes decode -> int8 dot: a guard asserts that its plan
-names only ``tsar_mxu`` and that it froze no ``sp_*`` pool leaves.
+The reference ``repro.serving.ServingEngine(packed=True)`` freezes a reduced
+config; the port's engine serves the same frozen planes (carried across with
+the bridge) on the CPU.  On the same requests the step-plan sequence, the
+greedy tokens and the engine counters must be identical.  The comparison
+relies on the reference step spelling every projection as the planes decode
+-> int8 dot: a guard asserts that its plan names only ``tsar_mxu`` and that
+it froze no ``sp_*`` pool leaves.  The windowed configs (reduced
+``gemma2-2b``, ``gemma3-4b``) serve prompts longer than their window of 32.
 """
 import ast
 import dataclasses
@@ -19,92 +20,61 @@ import jax
 import numpy as np
 import pytest
 import torch
+from _torch_serving import assert_same_run, reference_latent, requests, run_pair
 
 import repro.configs as jconfigs
-from repro.models import model_zoo as jzoo
-from repro.serving import Request as JRequest
 from repro.serving import ServingEngine as JServingEngine
 from repro_torch import bridge
 from repro_torch.plan import ModelPlan, registry, runtime
 from repro_torch.serving import Request, ServingEngine
 
 ROOT = Path(__file__).resolve().parents[1]
-COUNTERS = ("steps", "prefill_tokens", "decode_tokens", "total_tokens",
-            "peak_kv_blocks", "max_step_tokens", "preemptions")
-PLAN_FIELDS = ("tokens", "slot", "pos", "lengths", "n_real", "emit", "emit_row",
-               "width", "view_blocks", "prefill_mask", "prefill_tokens",
-               "decode_tokens")
 
 
 @pytest.fixture(scope="module")
 def ref_latent():
-    cfg = jconfigs.get("bitnet-2b-4t").reduced()
-    return cfg, jzoo.init_params(cfg, jax.random.PRNGKey(0))
+    return reference_latent("bitnet-2b-4t")
 
 
-def _requests(cls, lens, max_new, seed):
-    rng = np.random.default_rng(seed)
-    return [cls(uid=i, prompt=rng.integers(0, 100, size=n).astype(np.int32),
-                max_new_tokens=max_new) for i, n in enumerate(lens)]
-
-
-def _record_plans(engine):
-    plans = []
-    inner = engine.sched.plan_flat
-
-    def plan_flat(*args, **kw):
-        plan = inner(*args, **kw)
-        plans.append(plan)
-        return plan
-
-    engine.sched.plan_flat = plan_flat
-    return plans
-
-
-def _plan_key(plan):
-    if not hasattr(plan, "tokens"):
-        return ("preempt", plan.slot)
-    return tuple(np.asarray(getattr(plan, f)).tolist() for f in PLAN_FIELDS)
-
-
+_MIXED = dict(max_len=64, batch_slots=2, prefill_chunk=8)
+_TIGHT = dict(max_len=64, batch_slots=2, prefill_chunk=8, block_size=4, kv_blocks=16)
 SCENARIOS = {
-    # name: (engine kwargs, prompt lengths, max_new_tokens, seed)
-    "mixed": (dict(max_len=64, batch_slots=2, prefill_chunk=8), [3, 8, 21, 40, 5], 5, 7),
-    "preemption_storm": (dict(max_len=64, batch_slots=2, prefill_chunk=8,
-                              block_size=4, kv_blocks=16), [30, 31, 32, 12], 6, 11),
+    # name: (arch, engine kwargs, prompt lengths, max_new_tokens, seed)
+    "mixed": ("bitnet-2b-4t", _MIXED, [3, 8, 21, 40, 5], 5, 7),
+    "preemption_storm": ("bitnet-2b-4t", _TIGHT, [30, 31, 32, 12], 6, 11),
+    # Four prompts that share a 32-token prefix (made in _scenario_requests).
+    "prefix_cache": ("bitnet-2b-4t", dict(_MIXED, max_len=128, prefix_cache=True),
+                     [12, 9, 16, 5], 5, 3),
+    "prefix_cache_storm": ("bitnet-2b-4t", dict(_TIGHT, prefix_cache=True),
+                           [30, 31, 32, 12], 6, 11),
+    "gemma2_window": ("gemma2-2b", _MIXED, [3, 40, 21, 55], 6, 5),
+    "gemma3_window": ("gemma3-4b", _MIXED, [45, 8, 60], 6, 6),
+    "qwen3_qk_norm": ("qwen3-32b", _MIXED, [3, 8, 21, 40], 5, 8),
 }
 
 
+def _scenario_requests(name, cls):
+    _, _, lens, max_new, seed = SCENARIOS[name]
+    reqs = requests(cls, lens, max_new, seed)
+    if name == "prefix_cache":
+        system = (np.arange(32, dtype=np.int32) * 5 + 1) % 90
+        for r in reqs:
+            r.prompt = np.concatenate([system, r.prompt])
+    return reqs
+
+
 @pytest.mark.parametrize("scenario", sorted(SCENARIOS))
-def test_engine_matches_reference(scenario, ref_latent):
-    cfg, latent = ref_latent
-    kw, lens, max_new, seed = SCENARIOS[scenario]
-    ref = JServingEngine(cfg, latent, packed=True, policy="flat", **kw)
-
-    # Guard: the reference step spells every projection as the planes
-    # decode -> int8 dot only when the plan is tsar_mxu and no pools exist.
-    kernels = {lp.kernel for by_n in ref.plan.layers.values() for lp in by_n.values()}
-    assert kernels == {"tsar_mxu"}, kernels
-    leaves = [getattr(k, "key", "") for path, _ in
-              jax.tree_util.tree_flatten_with_path(ref.params)[0] for k in path]
-    assert not any(str(name).startswith("sp_") for name in leaves)
-
-    port = ServingEngine(cfg, bridge.params_from_reference(jax.tree.map(np.asarray, ref.params),
-                                                            device="cpu"),
-                         device="cpu", **kw)
-    ref_plans, port_plans = _record_plans(ref), _record_plans(port)
-    ref_reqs = ref.run(_requests(JRequest, lens, max_new, seed))
-    port_reqs = port.run(_requests(Request, lens, max_new, seed))
-
-    assert [_plan_key(p) for p in port_plans] == [_plan_key(p) for p in ref_plans]
-    assert all(r.done for r in port_reqs)
-    port.kv.check()
-    assert port.kv.blocks_in_use == 0
-    assert [r.out_tokens for r in port_reqs] == [r.out_tokens for r in ref_reqs]
-    for key in COUNTERS:
-        assert port.stats[key] == ref.stats[key], key
-    if scenario == "preemption_storm":
+def test_engine_matches_reference(scenario):
+    arch, kw = SCENARIOS[scenario][:2]
+    run = run_pair(arch, kw, lambda cls: _scenario_requests(scenario, cls))
+    assert_same_run(*run)
+    ref, port = run[0], run[1]
+    if "storm" in scenario:
         assert port.stats["preemptions"] > 0, "pool not tight enough"
+    if scenario.startswith("prefix_cache"):
+        assert port.sched.cached_tokens_skipped > 0
+    if "window" in scenario:
+        assert max(len(r.prompt) for r in run[3]) > port.cfg.window_size
 
 
 def test_temperature_sampling_is_seeded(ref_latent):
@@ -114,7 +84,7 @@ def test_temperature_sampling_is_seeded(ref_latent):
 
     def run(seed):
         eng = ServingEngine(cfg, params, max_len=32, batch_slots=2, seed=seed, device="cpu")
-        reqs = _requests(Request, [5, 7], 4, 3)
+        reqs = requests(Request, [5, 7], 4, 3)
         for r in reqs:
             r.temperature = 1.0
         return [r.out_tokens for r in eng.run(reqs)]
@@ -132,12 +102,22 @@ def test_cuda_device_raises_without_gpu(ref_latent):
         ServingEngine(cfg, {}, device="cuda")
 
 
-@pytest.mark.parametrize("kw", [dict(prefix_cache=True), dict(policy="chunked"),
-                                dict(packed=False)])
-def test_unported_options_raise(kw, ref_latent):
+@pytest.mark.parametrize("case", ["packed=False", "family=ssm"])
+def test_unported_options_raise(case, ref_latent):
     cfg, _ = ref_latent
+    kw = {}
+    if case == "packed=False":
+        kw["packed"] = False
+    else:
+        cfg = jconfigs.get("mamba2-780m").reduced()
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ServingEngine(cfg, {}, device="cpu", **kw)
+
+
+def test_unknown_policy_raises(ref_latent):
+    cfg, _ = ref_latent
+    with pytest.raises(ValueError, match="policy"):
+        ServingEngine(cfg, {}, device="cpu", policy="rectangular")
 
 
 def test_plan_is_accepted_and_used(ref_latent, monkeypatch):
@@ -157,7 +137,7 @@ def test_plan_is_accepted_and_used(ref_latent, monkeypatch):
                         lambda *a, **kw: seen.append(runtime.current()) or lower(*a, **kw))
     eng = ServingEngine(cfg, params, max_len=32, batch_slots=2, plan=dense, device="cpu")
     assert eng.plan is dense and eng.stats["plan_matched_layers"] == 7
-    reqs = eng.run(_requests(Request, [5, 7], 3, 3))
+    reqs = eng.run(requests(Request, [5, 7], 3, 3))
     assert all(r.done for r in reqs)
     assert len(seen) == 7 * cfg.n_layers * eng.stats["steps"]
     assert all(p is dense for p in seen)
@@ -173,6 +153,7 @@ def _port_files():
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax_or_reference(path):
+    """Neither JAX, the reference package nor the benchmark harness."""
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -183,7 +164,8 @@ def test_port_imports_no_jax_or_reference(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
+            assert top not in ("jax", "jaxlib", "repro", "benchmarks"), \
+                f"{path}: imports {name}"
 
 
 def test_chip_smoke_refuses_without_gpu_or_checkout(tmp_path):

@@ -147,7 +147,7 @@ def test_flat_step_matches_reference(ref_model):
                                       torch.from_numpy(slot).long(),
                                       torch.from_numpy(pos).long(), view,
                                       torch.from_numpy(emit_row).long())
-    tpools = model_zoo.scatter_cache_view(tpools, ttable, new)
+    tpools = model_zoo.scatter_cache_view(tpools, model_zoo.first_writers(table, "cpu"), new)
 
     assert logits.shape == (2, cfg.padded_vocab)
     assert torch.isfinite(logits).all()
