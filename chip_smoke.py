@@ -52,31 +52,38 @@ Phases, in order; any failure raises and the exit code is non-zero:
    and (40, 36) blocks, two calls ``torch.equal``; times beside the
    live-block bound, the padded kernel on the same matrix and
    ``torch._int_mm``; the launch structure (4 calls -> 4 device kernels);
-7. dense engine phase: full-width ``bitnet-2b-4t`` (30 layers, random
+7. family kernel phase: ``tsar_matmul`` at every (K, M) of the
+   projections that run it in full-width ``deepseek-moe-16b`` (attention,
+   shared experts), ``mamba2-780m`` (``in_proj``, ``out_proj``) and
+   ``hymba-1.5b`` (attention, MLP, ``in_proj``, ``out_proj``) x N in
+   {3, 4, 20, 64, 128}, required ``torch.equal``; times at N = 4 and 20
+   beside the bound and ``torch._int_mm``, and where the wrapper pads K or M
+   to 16 on every call, the kernel alone on inputs padded ahead of time;
+8. dense engine phase: full-width ``bitnet-2b-4t`` (30 layers, random
    weights from seed 0) served through ``ServingEngine(device="cuda")`` with
    its defaults (``sparse="auto"``, compiled plan): random absmean weights
    keep every block live, so the plan names only planes kernels and
    ``tsar_matmul`` must launch 210 x steps times; 8 requests finish, every
    logit is finite; a real ``w_gate`` projection at N=20 equals its plain
    version;
-8. policy phase: the same 8 requests on the same params through the
+9. policy phase: the same 8 requests on the same params through the
    ``chunked`` and ``whole`` policies (after ``warmup``): greedy tokens equal
    to the ``flat`` run's, launch counts equal to what the plan predicts for
    the row counts each ran (4 x 16 rows, whole prompts);
-9. prefix-cache phase: 8 requests in 2 groups sharing a 96-token system
+10. prefix-cache phase: 8 requests in 2 groups sharing a 96-token system
    prompt, each with a 16-48-token suffix (numpy seed 0), 16 new tokens,
    on a cold engine, a warm one (``prefix_cache=True``) and a warm one
    with a pool of 27 blocks (it preempts): equal greedy tokens, cached
    tokens skipped and fewer prefill tokens planned warm, ``kv.check()``
    and no block leaked, launch counts as the plan predicts; then a
    reduced-config step on the GPU agrees with the CPU within 1e-4;
-10. block-sparse engine phase: the same model with a seeded half of every
+11. block-sparse engine phase: the same model with a seeded half of every
    projection's (256, 256) blocks zeroed (block (0, 0) always): pools for
    all 7 projections, a plan of ``tsar_sparse_padded``, both launch counts
    equal to what the plan predicts over the run's steps, and greedy tokens
    equal to engines pinned to ``tsar_mxu`` by a hand-edited plan; the two
    routes run in turns (sparse, mxu, mxu, sparse) for their step times;
-11. bitlinear path phase: the seven projections of one full-width layer
+12. bitlinear path phase: the seven projections of one full-width layer
    (numpy seed 0), frozen on the card by ``core.bitlinear.freeze`` dense and
    with a seeded half of their (256, 256) latent blocks zeroed (block (0, 0)
    always), ``compile_plan`` over the 14 ``FrozenBitLinear``s, then
@@ -84,13 +91,35 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``LayerPlan``s and each of the six registry names: launch counts equal
    what the resolved kernels predict, the int8 family equal to the quantized
    oracle, the float family within rtol 1e-4 / atol 2e-3 of the dense
-   product, bf16 in gives bf16 out.
+   product, bf16 in gives bf16 out;
+13. MoE phase: full-width ``deepseek-moe-16b`` (28 layers, 64 routed
+   experts top-6 + 2 shared), drawn and frozen one layer at a time
+   (generator seed 0), through ``flat`` twice, ``chunked`` and ``whole`` at
+   its capacity factor 1.25 on the 8 requests: every request finishes, every
+   logit is finite, the two ``flat`` runs give equal greedy tokens,
+   ``tsar_matmul`` launches 196 x model calls (the routed experts run the
+   bf16 decode and no kernel); layer 0's ``moe_forward`` on the card against
+   the CPU (routing equal away from near ties within 1e-6, ``y`` within
+   rtol/atol 1e-2); CUDA-event times of the expert decode and of one layer;
+   the bf16 expert products, the router logits and the combine of the same
+   rows in two call shapes compared; runs of the first 4 requests x 8
+   tokens under the three policies at capacity 8.0 and at E / k (no drops),
+   each pair's first divergence and the dropped picks printed, not gated; a
+   reduced-config ``flat_step`` on the card against the CPU within 2^-8 (the
+   bf16 roundoff of the expert outputs);
+14. SSM phase: full-width ``mamba2-780m`` (48 layers) under ``whole``, twice
+   on the 8 requests: equal greedy tokens, ``tsar_matmul`` launches 96 per
+   decode step + 144 per whole prefill (``in_proj`` once more on the conv
+   tail), the wrapper's pad copies counted; a reduced config's whole
+   prefill + 4 decode steps on the card against the CPU within 1e-4;
+15. hybrid phase: the same for full-width ``hymba-1.5b`` (32 layers, 288
+   launches per decode step, 320 per whole prefill).
 
 Each engine run and each bitlinear run is a path: every launch count is set
 to 0 just before it and read just after.  Greedy tokens of two runs are
 compared strictly; on a difference the script prints the first diverging
 request and token with both runs' top-2 logits and margins there, then
-fails.  The card's name and power limit
+fails (the MoE cross-policy comparisons only print).  The card's name and power limit
 are printed again before the ``{"kernels": [...]}`` line, which comes
 before the last; the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
 or of the JAX package ``repro``.
@@ -117,6 +146,10 @@ INT8_OPS_PER_S = 1.979e15
 F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
 
 ARCH = "bitnet-2b-4t"
+MOE_ARCH, SSM_ARCH, HYBRID_ARCH = "deepseek-moe-16b", "mamba2-780m", "hymba-1.5b"
+# Row counts of the family kernel phase: the SSM prefill's conv tail (3),
+# decode and flat widths (4, 20), chunked rows (64), a whole prompt (128).
+FAMILY_NS = (3, 4, 20, 64, 128)
 KERNEL_SOURCES = ("tsar_matmul", "tsar_sparse", "tsar_lut")
 # Registry kernel -> the launch counter of its hand-written kernel
 # (``memory_lut`` and ``dense`` are plain PyTorch and launch none).
@@ -203,10 +236,21 @@ def bound(n: int, k: int, m: int) -> tuple[float, str]:
 
 
 def step_shapes(cfg) -> list[tuple[str, int, int]]:
-    d, f = cfg.d_model, cfg.d_ff
-    qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
-    return [("wq", d, qd), ("wk", d, kvd), ("wv", d, kvd), ("wo", qd, d),
-            ("w_gate", d, f), ("w_up", d, f), ("w_down", f, d)]
+    """(name, K, M) of one layer's BitLinear projections that run
+    ``tsar_matmul``: attention, the MLP or the shared experts (not the routed
+    experts), the SSM ``in_proj``/``out_proj``."""
+    d = cfg.d_model
+    out = []
+    if cfg.family != "ssm":
+        qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+        out += [("wq", d, qd), ("wk", d, kvd), ("wv", d, kvd), ("wo", qd, d)]
+        f = cfg.d_expert * cfg.n_shared_experts if cfg.is_moe else cfg.d_ff
+        if f:
+            out += [("w_gate", d, f), ("w_up", d, f), ("w_down", f, d)]
+    if cfg.family in ("ssm", "hybrid"):
+        di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        out += [("in_proj", d, 2 * di + 2 * n + nh), ("out_proj", di, d)]
+    return out
 
 
 def sparse_bound(n: int, kp: int, bk: int, bm: int, mb: int, s_steps: int,
@@ -253,6 +297,70 @@ def block_sparse_ternary(torch, rng, k: int, m: int, bk: int, bm: int, dev,
     return torch.from_numpy(t).to(dev)
 
 
+def matmul_point(torch, gen, n: int, k: int, m: int, timed: bool = True) -> dict:
+    """``tsar_matmul`` at one (N, K, M) point on random int8 activations and
+    planes: required ``torch.equal`` to the plain version; with ``timed``,
+    CUDA-graph times of the kernel, of the plain version and of
+    ``torch._int_mm`` beside the bound.  Returns the row (``max_abs_err``
+    and, timed, ``ms`` ``plain_ms`` ``bound_ms`` ``bound_by``
+    ``library_ms``)."""
+    from repro_torch.core import ternary
+    from repro_torch.kernels import tsar_matmul as tm
+
+    dev = torch.device("cuda")
+    a_q = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+    a_scale = torch.rand((n, 1), generator=gen, device=dev) + 0.01
+    w_scale = torch.rand((m,), generator=gen, device=dev) + 0.01
+    copies = max(2, min(256, math.ceil(2 * L2_BYTES / (k * m / 4)))) if timed else 1
+    planes = [(torch.randint(0, 256, (k // 8, m), generator=gen, device=dev,
+                             dtype=torch.uint8),
+               torch.randint(0, 256, (k // 8, m), generator=gen, device=dev,
+                             dtype=torch.uint8)) for _ in range(copies)]
+    s0, z0 = planes[0]
+    got = tm.tsar_matmul_packed(a_q, a_scale, s0, z0, w_scale)
+    want = tm.tsar_matmul_plain(a_q, a_scale, s0, z0, w_scale)
+    err = (got - want).abs().max().item()
+    _require(torch.equal(got, want),
+             f"tsar_matmul != plain at N={n} K={k} M={m} (max err {err})")
+    row = {"max_abs_err": err}
+    if not timed:
+        return row
+    ms = time_graph(torch, [
+        (lambda s=s, z=z: tm.tsar_matmul_packed(a_q, a_scale, s, z, w_scale))
+        for s, z in planes], launches_per_replay=2 * copies)
+    plain_ms = time_eager(
+        torch, lambda: tm.tsar_matmul_plain(a_q, a_scale, s0, z0, w_scale))
+    # Library yardstick: torch._int_mm on int8 weights decoded ahead of time
+    # (4x the weight bytes of the planes), rows padded as it needs (at least
+    # 32, a multiple of 8) and columns padded to a multiple of 8.
+    a32 = torch.zeros((int_mm_rows(n), k), dtype=torch.int8, device=dev)
+    a32[:n] = a_q
+    lib_copies = max(2, min(64, math.ceil(2 * L2_BYTES / (k * m))))
+    w8 = [torch.nn.functional.pad(ternary.decode_planes(s, z, k), (0, -m % 8)).contiguous()
+          for s, z in planes[:lib_copies]]
+    library_ms = time_graph(torch, [(lambda w=w: torch._int_mm(a32, w)) for w in w8],
+                            launches_per_replay=2 * lib_copies)
+    b_ms, b_by = bound(n, k, m)
+    row.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": library_ms})
+    padded = tm.pad_for_tma(a_q, s0, z0, w_scale)
+    if padded[1] is not s0:
+        # The wrapper pads K or M to 16 on every call; the kernel alone runs
+        # on inputs padded ahead of time.
+        pads = [tm.pad_for_tma(a_q, s, z, w_scale) for s, z in planes]
+        row["kernel_only_ms"] = time_graph(torch, [
+            (lambda p=p: tm.tsar_matmul_packed(p[0], a_scale, p[1], p[2], p[3]))
+            for p in pads], launches_per_replay=2 * copies)
+    print(f"tsar_matmul N={n:3d} K={k} M={m}: equal | {ms * 1e3:.2f} us (bound "
+          f"{b_ms * 1e3:.2f} us, {b_by}; {b_ms / ms:.1%} of bound)"
+          + (f", of which pad copies {(ms - row['kernel_only_ms']) * 1e3:.2f} us (kernel "
+             f"alone on inputs padded ahead {row['kernel_only_ms'] * 1e3:.2f} us)"
+             if "kernel_only_ms" in row else "")
+          + f" | plain {plain_ms * 1e3:.1f} us | _int_mm int8 {library_ms * 1e3:.2f} us",
+          flush=True)
+    return row
+
+
 def kernel_phase(torch, cfg) -> dict:
     from repro_torch.core import ternary
     from repro_torch.kernels import ops, ref
@@ -265,46 +373,8 @@ def kernel_phase(torch, cfg) -> dict:
     distinct = sorted({(k, m) for _, k, m in step_shapes(cfg)})
     for n in MATMUL_NS:
         for k, m in distinct:
-            a_q = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
-                                dtype=torch.int8)
-            a_scale = torch.rand((n, 1), generator=gen, device=dev) + 0.01
-            w_scale = torch.rand((m,), generator=gen, device=dev) + 0.01
-            copies = max(2, min(256, math.ceil(2 * L2_BYTES / (k * m / 4))))
-            planes = [(torch.randint(0, 256, (k // 8, m), generator=gen, device=dev,
-                                     dtype=torch.uint8),
-                       torch.randint(0, 256, (k // 8, m), generator=gen, device=dev,
-                                     dtype=torch.uint8)) for _ in range(copies)]
-            s0, z0 = planes[0]
-            got = tm.tsar_matmul_packed(a_q, a_scale, s0, z0, w_scale)
-            want = tm.tsar_matmul_plain(a_q, a_scale, s0, z0, w_scale)
-            err = (got - want).abs().max().item()
-            _require(torch.equal(got, want),
-                     f"tsar_matmul != plain at N={n} K={k} M={m} (max err {err})")
-            max_err = max(max_err, err)
-            ms = time_graph(torch, [
-                (lambda s=s, z=z: tm.tsar_matmul_packed(a_q, a_scale, s, z, w_scale))
-                for s, z in planes], launches_per_replay=2 * copies)
-            plain_ms = time_eager(
-                torch, lambda: tm.tsar_matmul_plain(a_q, a_scale, s0, z0, w_scale))
-            # Library yardstick: torch._int_mm on int8 weights decoded ahead
-            # of time (4x the weight bytes of the planes), rows padded as it
-            # needs (at least 32, a multiple of 8).
-            a32 = torch.zeros((int_mm_rows(n), k), dtype=torch.int8, device=dev)
-            a32[:n] = a_q
-            lib_copies = max(2, min(64, math.ceil(2 * L2_BYTES / (k * m))))
-            w8 = [ternary.decode_planes(s, z, k).contiguous()
-                  for s, z in planes[:lib_copies]]
-            library_ms = time_graph(torch, [
-                (lambda w=w: torch._int_mm(a32, w)) for w in w8],
-                launches_per_replay=2 * lib_copies)
-            b_ms, b_by = bound(n, k, m)
-            rows[(n, k, m)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                               "bound_by": b_by, "library_ms": library_ms}
-            print(f"tsar_matmul N={n:2d} K={k} M={m}: equal | {ms * 1e3:.2f} us "
-                  f"(bound {b_ms * 1e3:.2f} us, {b_by}; {b_ms / ms:.1%} of bound) | "
-                  f"plain {plain_ms * 1e3:.1f} us | _int_mm int8 {library_ms * 1e3:.2f} us",
-                  flush=True)
-            del planes, w8
+            rows[(n, k, m)] = matmul_point(torch, gen, n, k, m)
+            max_err = max(max_err, rows[(n, k, m)]["max_abs_err"])
     # Edge shapes straight into the kernel: row counts around the 8-row
     # n-tiles and the 32-row CTA tile at one full-width shape; TMA boxes
     # partly past the matrix (M % 64 != 0, Kp % 32 != 0, both multiples of
@@ -838,23 +908,29 @@ def zero_launch_counts() -> None:
             d[key] = 0
 
 
-def predicted_launches(engine, widths: list) -> dict:
+def predicted_launches(engine, widths: list, whole_prefills: int = 0) -> dict:
     """Kernel launches the engine's plan predicts over model calls of these
     row counts (a flat step's width T, a rectangular step's slots x chunk, a
     whole prefill's prompt length): each projection's planned kernel at the
     call's bucket, remapped within the sparse family as
     ``models.layers._packed_linear`` does; a padded sparse kernel on a layer
     with pools is ``tsar_sparse_padded``, a planes kernel (or no plan entry)
-    ``tsar_matmul``, once per stacked layer."""
+    ``tsar_matmul``, once per stacked layer.  The routed expert stacks
+    (planes (L, E, K/8, M)) run the bf16 decode and no kernel; each whole
+    prefill of an SSM layer calls its ``in_proj`` once more, on the last
+    W-1 rows (the conv tail)."""
     from repro_torch.plan import registry
 
     want = dict.fromkeys(COUNTERS, 0)
+    tail = [engine.cfg.ssm_conv_width - 1] * whole_prefills
     for name, (k, m, _c) in engine.plan.shapes.items():
         node = engine.params
         for key in name.split("/"):
             node = node[key]
+        if node["sign"].ndim > 3:
+            continue
         layer = {key: v[0] for key, v in node.items()}
-        for w in widths:
+        for w in widths + (tail if name.endswith("ssm/in_proj") else []):
             lp = engine.plan.lookup_shape(k, m, w)
             kern = None if lp is None else lp.kernel
             if kern in registry.SPARSE_KERNELS:
@@ -875,7 +951,7 @@ def run_path(torch, engine, reqs, label: str) -> dict:
     just after and held against the plan's prediction for the row counts
     of every model call the run made; every sampled logit row checked
     finite (and kept, for :func:`same_tokens`); every request must finish
-    with 16 tokens in ``[0, vocab)``."""
+    with its ``max_new_tokens`` tokens in ``[0, vocab)``."""
     widths, finite, rows, last = [], [], {}, {}
     sched = engine.sched
     plan_flat, plan_rect = sched.plan_flat, sched.plan
@@ -916,20 +992,21 @@ def run_path(torch, engine, reqs, label: str) -> dict:
     wall = time.perf_counter() - t0
     launches = launch_counts()
     vocab = engine.cfg.vocab_size
-    _require(all(r.done and len(r.out_tokens) == 16 for r in reqs),
-             f"{label}: not every request finished with 16 tokens")
+    _require(all(r.done and len(r.out_tokens) == r.max_new_tokens for r in reqs),
+             f"{label}: not every request finished with its max_new_tokens")
     _require(all(0 <= t < vocab for r in reqs for t in r.out_tokens),
              f"{label}: a token outside [0, vocab)")
     _require(finite and all(finite), f"{label}: non-finite logits in a step")
     _require(len(widths) == engine.stats["steps"] + engine.stats["whole_prefills"],
              f"{label}: unrecorded model calls")
-    want = predicted_launches(engine, widths)
+    want = predicted_launches(engine, widths, engine.stats["whole_prefills"])
     _require(launches == want, f"{label}: launches {launches}, the plan predicts {want}")
     decode_steps = engine.metrics.get("decode_steps").value
     prefill_calls = engine.metrics.get("prefill_steps").value + engine.stats["whole_prefills"]
     n_tok = sum(len(r.out_tokens) for r in reqs)
     pct = engine.latency_percentiles()
     out = {"launches": launches, "tokens": [r.out_tokens for r in reqs], "rows": rows,
+           "steps": engine.stats["steps"], "whole_prefills": engine.stats["whole_prefills"],
            "widths": sorted(set(widths)), "wall": wall,
            "decode_ms": engine.stats["decode_s"] / max(1, decode_steps) * 1e3,
            "prefill_ms": engine.stats["prefill_s"] / max(1, prefill_calls) * 1e3,
@@ -946,11 +1023,11 @@ def run_path(torch, engine, reqs, label: str) -> dict:
     return out
 
 
-def same_tokens(torch, a: dict, b: dict, what: str) -> None:
-    """Equal greedy tokens in two runs of the same requests, strictly.  On a
-    difference: the first diverging request and token, both runs' top-2
+def divergence(torch, a: dict, b: dict, what: str) -> str | None:
+    """None when two runs of the same requests gave equal greedy tokens;
+    else (printed) the first diverging request and token, both runs' top-2
     logits there and their margins, and how far the two runs' logit rows
-    apart are; then fail."""
+    are apart."""
     for uid, (ta, tb) in enumerate(zip(a["tokens"], b["tokens"])):
         if ta == tb:
             continue
@@ -958,40 +1035,97 @@ def same_tokens(torch, a: dict, b: dict, what: str) -> None:
         ra, rb = a["rows"][(uid, j)], b["rows"][(uid, j)]
         (va, ia), (vb, ib) = torch.topk(ra, 2), torch.topk(rb, 2)
         rel = ((ra - rb).abs() / rb.abs().clamp_min(1e-30)).max().item()
-        print(f"{what}: first divergence at request {uid}, token {j}: "
-              f"top-2 {ia.tolist()} {va.tolist()} (margin {(va[0] - va[1]).item():.6g}) "
-              f"against {ib.tolist()} {vb.tolist()} (margin {(vb[0] - vb[1]).item():.6g}); "
-              f"logit rows max abs diff {(ra - rb).abs().max().item():.6g}, max rel "
-              f"diff {rel:.6g}; tokens before it equal", flush=True)
-        raise AssertionError(f"{what}: greedy tokens differ (request {uid}, token {j})")
+        msg = (f"{what}: first divergence at request {uid}, token {j}: "
+               f"top-2 {ia.tolist()} {va.tolist()} (margin {(va[0] - va[1]).item():.6g}) "
+               f"against {ib.tolist()} {vb.tolist()} (margin {(vb[0] - vb[1]).item():.6g}); "
+               f"logit rows max abs diff {(ra - rb).abs().max().item():.6g}, max rel "
+               f"diff {rel:.6g}; tokens before it equal")
+        print(msg, flush=True)
+        return msg
+    return None
+
+
+def same_tokens(torch, a: dict, b: dict, what: str) -> None:
+    """Equal greedy tokens in two runs of the same requests, strictly; on a
+    difference :func:`divergence` prints where, then this fails."""
+    if divergence(torch, a, b, what) is not None:
+        raise AssertionError(f"{what}: greedy tokens differ")
 
 
 def bitlinear_leaves(params) -> dict:
-    """path -> frozen BitLinear dict (stacked over the layers)."""
-    return {f"{b}/{n}": leaf for b, block in params["blocks"].items()
-            for n, leaf in block.items() if isinstance(leaf, dict) and "sign" in leaf}
+    """path -> frozen BitLinear dict (stacked over the layers) of every
+    projection in the layer stack."""
+    out = {}
+
+    def walk(node, path):
+        if "sign" in node:
+            out[path] = node
+            return
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{path}/{k}" if path else k)
+
+    walk(params["blocks"], "")
+    return out
 
 
-def init_frozen(torch, cfg, kill_blocks: bool):
+def latent_leaves(tree) -> dict:
+    """path -> latent BitLinear dict ``{'w'}`` of a params tree, in sorted
+    path order."""
+    out = {}
+
+    def walk(node, path):
+        if set(node) == {"w"}:
+            out[path] = node
+            return
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{path}/{k}" if path else k)
+
+    walk(tree, "")
+    return dict(sorted(out.items()))
+
+
+def init_frozen(torch, cfg, kill_blocks: bool = False, by_block: bool = False,
+                label: str = "engine"):
     """Full-width random params (generator seed 0) frozen with the engine's
     defaults.  ``kill_blocks`` first zeroes a seeded half (numpy seed 0) of
-    every BitLinear stack's (256, 256) weight blocks, block (0, 0) always."""
+    every BitLinear stack's (256, 256) weight blocks, block (0, 0) always.
+    ``by_block`` draws and freezes one layer at a time
+    (``transformer.init_block``) and stacks the frozen layers, so only one
+    layer's latent fp32 weights are ever resident (the MoE tree holds 16.5 B
+    weights)."""
     import numpy as np
 
-    from repro_torch.models import model_zoo
+    from repro_torch.models import model_zoo, transformer
     from repro_torch.serving import freeze_params
 
     dev = torch.device("cuda")
     gc.collect()             # an earlier phase's engines hold reference cycles
-    t0 = time.perf_counter()
-    latents = model_zoo.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    if kill_blocks:
-        rng = np.random.default_rng(0)
-        for block in ("attn", "mlp"):
-            for name in sorted(latents["blocks"][block]):
-                leaf = latents["blocks"][block][name]
-                if set(leaf) != {"w"}:
-                    continue
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if by_block:
+        t_init = t_freeze = 0.0
+        blocks = []
+        for _ in range(cfg.n_layers):
+            t0 = time.perf_counter()
+            latent = transformer.init_block(cfg, gen, dev)
+            torch.cuda.synchronize()
+            t_init += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            blocks.append(freeze_params(latent))
+            torch.cuda.synchronize()
+            t_freeze += time.perf_counter() - t0
+            del latent
+        params = {"blocks": transformer.stack_layers(blocks),
+                  **transformer.init_head(cfg, gen, dev)}
+        del blocks
+    else:
+        t0 = time.perf_counter()
+        latents = model_zoo.init_params(cfg, gen, dev)
+        if kill_blocks:
+            rng = np.random.default_rng(0)
+            for leaf in latent_leaves(latents["blocks"]).values():
                 n_l, k, m = leaf["w"].shape
                 dead = rng.random((n_l, -(-k // 256), -(-m // 256))) < 0.5
                 dead[:, 0, 0] = True
@@ -999,15 +1133,16 @@ def init_frozen(torch, cfg, kill_blocks: bool):
                 for i in range(n_l):
                     mask = live[i].repeat_interleave(256, 0).repeat_interleave(256, 1)
                     leaf["w"][i].mul_(mask[:k, :m])
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    params = freeze_params(latents)
-    torch.cuda.synchronize()
-    t_freeze = time.perf_counter() - t0
-    del latents
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params = freeze_params(latents)
+        torch.cuda.synchronize()
+        t_freeze = time.perf_counter() - t0
+        del latents
     torch.cuda.empty_cache()
-    print(f"engine: init {t_init:.2f} s, freeze {t_freeze:.2f} s, "
+    print(f"{label}: {cfg.name} init {t_init:.2f} s, freeze {t_freeze:.2f} s"
+          f"{' (one layer at a time)' if by_block else ''}, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident after freeze",
           flush=True)
     return params
@@ -1252,9 +1387,9 @@ def profile_decode(torch, cfg, make_engine, request_cls) -> None:
           f"{n_launch / 4:.0f} kernel launches", flush=True)
 
 
-def cpu_agreement(torch, cfg_full) -> None:
+def cpu_agreement(torch, cfg_full, tol: float = 1e-4) -> None:
     """Reduced config: one flat step on the GPU (kernel) and on the CPU
-    (plain path) with the same frozen weights agree within 1e-4."""
+    (plain path) with the same frozen weights agree within ``tol``."""
     from repro_torch.models import model_zoo
     from repro_torch.serving import freeze_params
 
@@ -1274,10 +1409,280 @@ def cpu_agreement(torch, cfg_full) -> None:
         emit = torch.tensor([6, 10], device=dev)
         logits, _ = model_zoo.flat_step(cfg, params, tokens, slot, pos, view, emit)
         outs[dev] = logits.cpu()
-    _require(torch.allclose(outs["cuda"], outs["cpu"], rtol=1e-4, atol=1e-4),
-             "reduced flat_step on the GPU disagrees with the CPU")
-    print(f"reduced flat_step GPU vs CPU: max abs diff "
-          f"{(outs['cuda'] - outs['cpu']).abs().max().item():.3g} (tol 1e-4)", flush=True)
+    diff = (outs["cuda"] - outs["cpu"]).abs().max().item()
+    print(f"reduced {cfg.name} flat_step GPU vs CPU: max abs diff {diff:.3g} "
+          f"(tol {tol:.3g})", flush=True)
+    _require(torch.allclose(outs["cuda"], outs["cpu"], rtol=tol, atol=tol),
+             f"reduced {cfg.name} flat_step on the GPU disagrees with the CPU")
+
+
+def recurrent_agreement(torch, cfg_full, tol: float = 1e-4) -> None:
+    """Reduced SSM/hybrid config: one whole prefill of 16 tokens and 4
+    decode steps (fixed tokens) on the GPU and on the CPU with the same
+    frozen weights give logits within ``tol``."""
+    from repro_torch.models import model_zoo
+    from repro_torch.serving import freeze_params
+
+    cfg = cfg_full.reduced()
+    params_cpu = freeze_params(model_zoo.init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu"))
+    toks = torch.arange(40).reshape(2, 20) * 37 % cfg.vocab_size
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        params = _to(torch, params_cpu, dev)
+        cache = model_zoo.init_cache(cfg, 2, 32, device=dev)
+        logits, cache = model_zoo.prefill(cfg, params, {"tokens": toks[:, :16].to(dev)}, cache)
+        seq = [logits[:, -1]]
+        for t in range(16, 20):
+            lg, cache = model_zoo.decode_step(cfg, params, toks[:, t:t + 1].to(dev), cache, t)
+            seq.append(lg[:, 0])
+        outs[dev] = torch.stack(seq).cpu()
+    diff = (outs["cuda"] - outs["cpu"]).abs().max().item()
+    print(f"reduced {cfg.name} prefill + 4 decode steps GPU vs CPU: max abs diff "
+          f"{diff:.3g} (tol {tol:.3g})", flush=True)
+    _require(torch.allclose(outs["cuda"], outs["cpu"], rtol=tol, atol=tol),
+             f"reduced {cfg.name} prefill/decode on the GPU disagrees with the CPU")
+
+
+def family_kernel_phase(torch, cfgs: list) -> dict:
+    """``tsar_matmul`` at every (K, M) of the MoE, SSM and hybrid models'
+    kernel projections x ``FAMILY_NS`` rows, ``torch.equal`` to the plain
+    version, timed at N = 4 and 20 (with the pad copies apart where the
+    wrapper pads); per model, one decode step's sum at N = 4."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = {}
+    for cfg in cfgs:
+        for k, m in sorted({(k, m) for _, k, m in step_shapes(cfg)}):
+            if (FAMILY_NS[0], k, m) in rows:
+                continue
+            for n in FAMILY_NS:
+                rows[(n, k, m)] = matmul_point(torch, gen, n, k, m, timed=n in (4, 20))
+            print(f"tsar_matmul K={k} M={m} ({cfg.name}): equal to the plain version at "
+                  f"N in {FAMILY_NS}", flush=True)
+    for cfg in cfgs:
+        shapes = step_shapes(cfg)
+        tot = {key: sum(rows[(4, k, m)][key] for _, k, m in shapes) * cfg.n_layers
+               for key in ("ms", "bound_ms", "library_ms", "plain_ms")}
+        pads = [name for name, k, m in shapes if "kernel_only_ms" in rows[(4, k, m)]]
+        print(f"{cfg.name}: one N=4 decode step's {len(shapes) * cfg.n_layers} tsar_matmul "
+              f"launches {tot['ms']:.4f} ms (bound {tot['bound_ms']:.4f} ms, _int_mm "
+              f"{tot['library_ms']:.4f} ms, plain {tot['plain_ms']:.2f} ms); projections "
+              f"the wrapper pads on every call: {pads or 'none'}", flush=True)
+    return {"rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows.values())}
+
+
+def moe_layer_agreement(torch, cfg, params) -> None:
+    """Layer 0's ``moe_forward`` on the card and on the CPU on numpy-seeded
+    inputs (2 x 20 tokens): the same routing indices except for tokens
+    whose gates around the k-th are within 1e-6 (counted), ``y`` within
+    rtol/atol 1e-2 where the routing agrees."""
+    import numpy as np
+
+    from repro_torch.models import moe, transformer
+
+    p_gpu = transformer.layer_slice(params["blocks"], 0)["moe"]
+    p_cpu = _to(torch, p_gpu, "cpu")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 20, cfg.d_model)).astype(np.float32))
+    out = {}
+    for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        xd = x.to(dev)
+        r = moe._route(cfg, p, xd)
+        y, aux = moe.moe_forward(cfg, p, xd)
+        out[dev] = ({k: v.cpu() for k, v in r.items()}, y.cpu(), float(aux))
+    (rg, yg, ag), (rc, yc, ac) = out["cuda"], out["cpu"]
+    k = cfg.moe_top_k
+    g = torch.sort(rc["gates"], dim=-1, descending=True).values[..., :k + 1]
+    near = (g[..., :-1] - g[..., 1:]).abs().min(dim=-1).values <= 1e-6     # (B, S)
+    same = (rg["topi"] == rc["topi"]).all(dim=-1)
+    _require(bool((same | near).all()), "moe_forward routing differs on the card away "
+             "from a near tie")
+    rows = same.all(dim=-1)             # batch rows whose every token routes alike
+    err = (yg - yc).abs().max().item()
+    _require(torch.allclose(yg[rows], yc[rows], rtol=1e-2, atol=1e-2),
+             f"moe_forward y on the card != CPU (max abs diff {err})")
+    dispatch_equal = torch.equal(rg["dispatch"], rc["dispatch"])
+    print(f"moe: layer-0 moe_forward card vs CPU on 2 x 20 tokens: routing equal on "
+          f"{int(same.sum())}/{same.numel()} tokens, {int(near.sum())} near ties "
+          f"(<= 1e-6), dispatch equal {dispatch_equal}, y max abs diff {err:.3g} "
+          f"(rtol/atol 1e-2), aux {ag:.6f} vs {ac:.6f}", flush=True)
+
+
+def moe_phase(torch, cfg) -> dict:
+    """Full-width MoE serving: flat twice, chunked, whole at the config's
+    capacity, then cross-policy measurements (printed, not gated)."""
+    import dataclasses
+
+    from repro_torch.models import layers, moe, transformer
+    from repro_torch.serving import Request
+
+    params = init_frozen(torch, cfg, by_block=True, label="moe")
+    leaves = bitlinear_leaves(params)
+    routed = sorted(path for path, leaf in leaves.items() if leaf["sign"].ndim == 4)
+    _require(routed == ["moe/w_down", "moe/w_gate", "moe/w_up"], f"routed stacks {routed}")
+    _require(not any("sp_sign" in leaf for leaf in leaves.values()),
+             "absmean weights froze sparse pools")
+    per_call = len(step_shapes(cfg)) * cfg.n_layers
+    runs, engines = {}, {}
+    for label, kw in (("flat", {}), ("flat again", {"profile_density": False}),
+                      ("chunked", {"policy": "chunked", "profile_density": False}),
+                      ("whole", {"policy": "whole", "profile_density": False})):
+        t0 = time.perf_counter()
+        engine = engines[label] = dense_engine(torch, cfg, params, **kw)
+        t_init = time.perf_counter() - t0
+        if label == "flat":
+            kernels = {lp.kernel for by_n in engine.plan.layers.values()
+                       for lp in by_n.values()}
+            _require(kernels <= {"tsar_mxu", "tsar_lut"}, f"moe plan names {kernels}")
+            print(f"moe: engine init {t_init:.2f} s, plan kernels {sorted(kernels)} over "
+                  f"{len(engine.plan.layers)} layers (routed stacks included, served by "
+                  f"the bf16 decode)", flush=True)
+        run = runs[label] = run_path(torch, engine, make_requests(Request, cfg), f"moe {label}")
+        calls = run["steps"] + run["whole_prefills"]
+        _require(run["launches"]["tsar_matmul"] == per_call * calls,
+                 f"moe {label}: tsar_matmul launched {run['launches']['tsar_matmul']} times, "
+                 f"expected {per_call} x {calls} model calls")
+    same_tokens(torch, runs["flat"], runs["flat again"], "moe flat vs flat again")
+    for pol in ("chunked", "whole"):
+        divergence(torch, runs["flat"], runs[pol], f"moe capacity {cfg.capacity_factor} "
+                   f"flat vs {pol} (not gated)")
+    moe_layer_agreement(torch, cfg, params)
+
+    # Device time of the routed-expert decode and of one layer's MoE at the
+    # decode and flat-prefill widths (CUDA events).
+    p0 = transformer.layer_slice(params["blocks"], 0)["moe"]
+    dec_ms = time_eager(torch, lambda: [moe._decode_planes(p0[n]["sign"], p0[n]["zero"],
+                                                           p0[n]["scale"])
+                                        for n in ("w_gate", "w_up", "w_down")])
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    layer_ms = {t: time_eager(torch, lambda t=t: moe.moe_forward(
+        cfg, p0, torch.randn((1, t, cfg.d_model), generator=gen, device="cuda")))
+        for t in (4, 20)}
+    # Do the MoE's products round the same rows alike in the call shapes the
+    # policies give them?  Rows alone against inside a larger call: the
+    # bf16 expert products (3 slots of 1 batch row, inside 15 slots and
+    # inside 4 batch rows), the float32 router logits (4 rows, inside 20, 64
+    # and 128) and the bf16 combine (3 slots, inside 15, the rest zero; its
+    # expert outputs from the 1-row calls).
+    def differ(a, b) -> str:
+        return f"{int((a != b).sum())} of {a.numel()}"
+
+    xe = torch.randn((4, cfg.n_experts, 15, cfg.d_model), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    full = moe._expert_ffn(p0, xe)
+    narrow = moe._expert_ffn(p0, xe[:1, :, :3].contiguous())
+    one_row = moe._expert_ffn(p0, xe[:1])
+    wide = one_row[:, :, :3]
+    x128 = torch.randn((1, 128, cfg.d_model), generator=gen, device="cuda")
+    r4 = layers.linear(p0["router"], x128[:, :4].contiguous())
+    comb = torch.rand((1, 4, cfg.n_experts, 15), generator=gen, device="cuda").to(torch.bfloat16)
+    comb[..., 3:] = 0
+    c_wide = moe._bf16_einsum("bsec,becd->bsd", comb, one_row)
+    c_narrow = moe._bf16_einsum("bsec,becd->bsd", comb[..., :3].contiguous(), narrow)
+    print("moe: the same rows in two call shapes, elements that differ: bf16 expert "
+          f"outputs 3 slots vs 15 {differ(narrow, wide)}, 1 batch row vs 4 "
+          f"{differ(narrow, full[:1, :, :3])}; float32 router logits 4 rows vs "
+          + ", ".join(f"{t} {differ(r4, layers.linear(p0['router'], x128[:, :t])[:, :4])}"
+                      for t in (20, 64, 128))
+          + f"; bf16 combine 3 slots vs 15 {differ(c_narrow, c_wide)}", flush=True)
+    flat = runs["flat"]
+    print(f"moe: expert decode (3 stacks, 553.6 M weights -> bf16) {dec_ms:.3f} ms per layer, "
+          f"{dec_ms * cfg.n_layers:.2f} ms per model call | one layer's moe_forward "
+          f"{layer_ms[4]:.3f} ms at 4 tokens, {layer_ms[20]:.3f} ms at 20 | flat decode "
+          f"{flat['decode_ms']:.2f} ms/step, prefill {flat['prefill_ms']:.2f} ms/step",
+          flush=True)
+
+    # The first 4 requests, 8 new tokens, under the three policies at
+    # capacity 8.0 (dropless at the reduced widths: C = 4 S there) and at
+    # E / k (C >= S: no call can drop at any width; 8.0 gives C = 0.75 S
+    # here); the first divergence of each pair and the (token, expert)
+    # picks dropped are printed, not gated.
+    route = moe._route
+    dropped = {"n": 0}
+
+    def counting_route(c, p, x):
+        r = route(c, p, x)
+        kept = int(r["dispatch"].to(torch.float32).sum().item())
+        dropped["n"] += x.shape[0] * x.shape[1] * c.moe_top_k - kept
+        return r
+
+    same = {}
+    moe._route = counting_route
+    try:
+        for cf in (8.0, cfg.n_experts / cfg.moe_top_k):
+            cf_cfg = dataclasses.replace(cfg, capacity_factor=cf)
+            drop, drops = {}, {}
+            for pol in POLICIES:
+                reqs = make_requests(Request, cfg)[:4]
+                for r in reqs:
+                    r.max_new_tokens = 8
+                engine = dense_engine(torch, cf_cfg, params, policy=pol, profile_density=False)
+                dropped["n"] = 0
+                drop[pol] = run_path(torch, engine, reqs, f"moe capacity {cf:.4g} {pol}")
+                drops[pol] = dropped["n"]
+            same[cf] = {f"{a} vs {b}": divergence(
+                torch, drop[a], drop[b], f"moe capacity {cf:.4g} {a} vs {b} (not gated)") is None
+                for a, b in (("flat", "chunked"), ("flat", "whole"), ("chunked", "whole"))}
+            print(f"moe capacity {cf:.4g}: cross-policy greedy tokens equal {same[cf]}; "
+                  f"(token, expert) picks dropped, padding rows included: {drops}",
+                  flush=True)
+    finally:
+        moe._route = route
+    # The expert outputs are rounded to bf16 (relative roundoff 2^-8); the
+    # card and the CPU sum their float32 products in different orders, so
+    # one can round a bf16 ulp apart: the logits are held to 2^-8.
+    cpu_agreement(torch, cfg, tol=2.0 ** -8)
+    return {"runs": runs, "cross_policy_same": same}
+
+
+def recurrent_phase(torch, cfg, per_step: int, per_prefill: int) -> dict:
+    """Full-width SSM or hybrid serving under ``whole``, twice: equal
+    greedy tokens, ``tsar_matmul`` launches per_step per decode step plus
+    per_prefill per whole prefill, and the wrapper's pad copies counted."""
+    from repro_torch.kernels import tsar_matmul as tm
+    from repro_torch.serving import Request
+
+    label = cfg.family
+    params = init_frozen(torch, cfg, by_block=True, label=label)
+    pad = tm.pad_for_tma
+    copies = {}          # row count of the call -> pad copies made
+
+    def counting_pad(a_q, sign, zero, w_scale):
+        out = pad(a_q, sign, zero, w_scale)
+        if out[1] is not sign:
+            copies[a_q.shape[0]] = copies.get(a_q.shape[0], 0) + 1
+        return out
+
+    runs = []
+    tm.pad_for_tma = counting_pad
+    try:
+        for i in range(2):
+            engine = dense_engine(torch, cfg, params, profile_density=i == 0)
+            _require(engine.policy == "whole", f"{label}: policy {engine.policy}")
+            copies.clear()
+            run = run_path(torch, engine, make_requests(Request, cfg), f"{label} whole run {i + 1}")
+            # Decode steps run 4 rows (4 slots x 1); prompts are 16-128 rows.
+            run["pad_copies"] = sum(copies.values())
+            run["pad_copies_per_step"] = copies.get(engine.slots, 0) / run["steps"]
+            want = per_step * run["steps"] + per_prefill * run["whole_prefills"]
+            _require(run["launches"]["tsar_matmul"] == want,
+                     f"{label}: tsar_matmul launched {run['launches']['tsar_matmul']} times, "
+                     f"expected {per_step} x {run['steps']} steps + {per_prefill} x "
+                     f"{run['whole_prefills']} whole prefills = {want}")
+            runs.append(run)
+    finally:
+        tm.pad_for_tma = pad
+    same_tokens(torch, runs[0], runs[1], f"{label} whole run 1 vs run 2")
+    r = runs[0]
+    print(f"{label}: {cfg.name} tokens equal across two runs | launches {per_step}/decode "
+          f"step + {per_prefill}/whole prefill | the wrapper's pad copies: "
+          f"{r['pad_copies']} over {r['launches']['tsar_matmul']} launches, "
+          f"{r['pad_copies_per_step']:g} per decode step | decode {r['decode_ms']:.2f} ms/step, "
+          f"whole prefill {r['prefill_ms']:.2f} ms/call, TTFT p50 {r['ttft_ms']:.1f} ms, "
+          f"TPOT p50 {r['tpot_ms']:.2f} ms", flush=True)
+    recurrent_agreement(torch, cfg)
+    return {"runs": runs}
 
 
 def _to(torch, tree, dev):
@@ -1332,12 +1737,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False     # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
     cfg = configs.get(ARCH)
-    # 3-6. kernels
+    # 3-7. kernels
     kern = kernel_phase(torch, cfg)
     sparse = sparse_kernel_phase(torch, cfg)
     lut_res = lut_kernel_phase(torch, cfg)
     compact = compact_kernel_phase(torch, cfg)
-    # 7-11. paths, each run with the launch counts zeroed just before it
+    family_cfgs = [configs.get(a) for a in (MOE_ARCH, SSM_ARCH, HYBRID_ARCH)]
+    family_kernel_phase(torch, family_cfgs)
+    # 8-15. paths, each run with the launch counts zeroed just before it
     params = init_frozen(torch, cfg, kill_blocks=False)
     flat_run = engine_phase(torch, cfg, params, profile=args.profile)
     launches = flat_run["launches"]["tsar_matmul"]
@@ -1347,6 +1754,13 @@ def main() -> int:
     cpu_agreement(torch, cfg)
     sparse_launches = sparse_engine_phase(torch, cfg)["launches"]
     bl_launches = bitlinear_phase(torch, cfg)["launches"]
+    # 13-15. the MoE, SSM and hybrid families' serving paths at full width
+    moe_cfg, ssm_cfg, hybrid_cfg = family_cfgs
+    moe_phase(torch, moe_cfg)
+    for fcfg in (ssm_cfg, hybrid_cfg):
+        shapes = step_shapes(fcfg)
+        recurrent_phase(torch, fcfg, per_step=len(shapes) * fcfg.n_layers,
+                        per_prefill=(len(shapes) + 1) * fcfg.n_layers)
 
     # Per kernel, the seven projections at N=4: times 30 layers for the two
     # kernels of the serving step (one decode step), one layer for the two of

@@ -186,7 +186,11 @@ def tsar_matmul_packed(a_q: torch.Tensor, a_scale: torch.Tensor,
     ``a_scale`` is (N, 1) float32, ``w_scale`` (M,) float32.  On CUDA the
     kernel's TMA copies need ``a_q`` and the planes 16-byte aligned (a
     ``ValueError`` otherwise) and Kp and M multiples of 16: other shapes are
-    padded here (:func:`pad_for_tma`).  The serving shapes copy nothing.
+    padded here (:func:`pad_for_tma`), which copies the planes, ``w_scale``
+    and ``a_q`` on every call and the output's first M columns after it.
+    Of the served configs' projections only ``hymba-1.5b``'s SSM
+    ``in_proj`` (K 1600, M 6482, padded to 6496) copies; every other
+    projection of every config has Kp and M multiples of 16.
     """
     _check(a_q, a_scale, sign_plane, zero_plane, w_scale)
     if a_q.device.type == "cpu":

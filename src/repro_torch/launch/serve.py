@@ -3,9 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch bitnet-2b-4t \
         --requests 8 --max-new 16
 
-``--smoke`` serves the reduced config; ``--device cpu`` runs the plain
-PyTorch path on the CPU.  Weights are random (seed 0): nothing is
-downloaded.  ``--sparse`` and ``--sparse-block`` set the freeze's padded
+``--arch`` takes a dense, MoE, SSM or hybrid config (``bitnet-2b-4t``,
+``deepseek-moe-16b``, ``mamba2-780m``, ``hymba-1.5b``, ...; the SSM and
+hybrid ones run the ``whole`` policy).  ``--smoke`` serves the reduced
+config; ``--device cpu`` runs the plain PyTorch path on the CPU.  Weights
+are random (seed 0): nothing is downloaded.  ``--sparse`` and ``--sparse-block`` set the freeze's padded
 block pools; ``--plan-file`` loads an execution plan (the reference's JSON
 format) or saves the compiled one there, ``--save-plan`` also writes it,
 ``--print-plan`` prints the per-layer table, and ``--prefix-cache

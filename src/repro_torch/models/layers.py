@@ -25,6 +25,47 @@ from repro_torch.sparse import format as sparse_format
 
 
 # ---------------------------------------------------------------------------
+# Init: latent fp32 params in the reference's layout (``init_*`` of
+# ``repro/models/layers.py``); the random numbers come from a
+# ``torch.Generator`` on the params' device and differ from the reference's.
+# ---------------------------------------------------------------------------
+
+def normal(generator: torch.Generator, shape: tuple, std: float,
+           dev: torch.device) -> torch.Tensor:
+    return torch.randn(shape, generator=generator, dtype=torch.float32, device=dev) * std
+
+
+def init_linear(generator: torch.Generator, k: int, m: int, dev: torch.device) -> dict:
+    """BitLinear latent weights ``{'w'}`` (k, m), fan-in scaled."""
+    return {"w": normal(generator, (k, m), 1.0 / math.sqrt(k), dev)}
+
+
+def init_rmsnorm(d: int, dev: torch.device) -> dict:
+    return {"g": torch.zeros((d,), dtype=torch.float32, device=dev)}
+
+
+def init_attention(cfg, generator: torch.Generator, dev: torch.device) -> dict:
+    d, h, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {"wq": init_linear(generator, d, h * dh, dev),
+         "wk": init_linear(generator, d, hk * dh, dev),
+         "wv": init_linear(generator, d, hk * dh, dev),
+         "wo": init_linear(generator, h * dh, d, dev)}
+    if cfg.qk_norm:
+        p["qn"], p["kn"] = init_rmsnorm(dh, dev), init_rmsnorm(dh, dev)
+    return p
+
+
+def init_mlp(cfg, generator: torch.Generator, dev: torch.device) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp_gated:
+        return {"w_gate": init_linear(generator, d, f, dev),
+                "w_up": init_linear(generator, d, f, dev),
+                "w_down": init_linear(generator, f, d, dev)}
+    return {"w_up": init_linear(generator, d, f, dev),
+            "w_down": init_linear(generator, f, d, dev)}
+
+
+# ---------------------------------------------------------------------------
 # Linear dispatch
 # ---------------------------------------------------------------------------
 

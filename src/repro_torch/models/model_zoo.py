@@ -9,7 +9,9 @@ The attention K/V leaves are a pool of fixed-size token blocks,
 (L, num_blocks, block_size, Hkv, Dh); per-slot block tables map a slot's
 logical positions onto pool blocks.  Block 0 is reserved scratch: table
 padding points at it, so gathers and scatters of unallocated entries touch
-garbage that the attention mask never reads.
+garbage that the attention mask never reads.  Every other leaf (the SSM
+conv tail and SSD state) is O(1) per slot and stays dense with a slot axis,
+(L, slots, ...): the view passes it through and the scatter writes it back.
 """
 from __future__ import annotations
 
@@ -62,25 +64,30 @@ def flat_step(cfg, params, tokens, slot, pos, cache, emit_row):
 
 def init_paged_cache(cfg, slots: int, num_blocks: int, block_size: int,
                      dtype=torch.float32, device="cuda") -> dict:
-    """Paged K/V pools (L, num_blocks, block_size, Hkv, Dh), zero-filled."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"init_paged_cache: only the dense family is ported (got {cfg.family!r})")
+    """Pool-shaped decode caches, zero-filled: paged K/V pools
+    (L, num_blocks, block_size, Hkv, Dh) and dense per-slot state."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
-    return {name: torch.zeros(shape, dtype=dtype, device=dev)
-            for name in PAGED_LEAVES}
+    pools = {}
+    for name, shape in transformer.cache_shapes(cfg, slots, block_size).items():
+        if name in PAGED_LEAVES:
+            shape = (shape[0], num_blocks) + tuple(shape[2:])
+        pools[name] = torch.zeros(shape, dtype=dtype, device=dev)
+    return pools
 
 
 def gather_cache_view(pools: dict, block_table: torch.Tensor) -> dict:
     """Contiguous per-slot cache view through block tables.
 
     block_table (B, VB) integer — each slot's first VB blocks (0-padded).
-    Paged leaves (L, NB, bs, ...) -> (L, B, VB*bs, ...), a fresh copy.
+    Paged leaves (L, NB, bs, ...) -> (L, B, VB*bs, ...), a fresh copy; dense
+    leaves pass through (the pool tensor itself).
     """
     view = {}
     idx = block_table.long()
     for name, leaf in pools.items():
+        if name not in PAGED_LEAVES:
+            view[name] = leaf
+            continue
         l, _, bs = leaf.shape[:3]
         b, vb = idx.shape
         view[name] = leaf[:, idx].reshape((l, b, vb * bs) + tuple(leaf.shape[3:]))
@@ -109,10 +116,13 @@ def scatter_cache_view(pools: dict, writers: tuple, view: dict) -> dict:
     (``writers``, from :func:`first_writers` of the table the view was
     gathered through), so the result does not depend on the order of
     duplicate writes nor on the copies of a shared block agreeing in every
-    slot's view.
+    slot's view.  Dense leaves take the view's tensor.
     """
     blocks, first = writers
     for name, leaf in pools.items():
+        if name not in PAGED_LEAVES:
+            pools[name] = view[name]
+            continue
         l, _, bs = leaf.shape[:3]
         b, t = view[name].shape[1:3]
         rows = view[name].reshape((l, b * (t // bs), bs) + tuple(leaf.shape[3:]))

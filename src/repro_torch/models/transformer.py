@@ -1,17 +1,21 @@
-"""Decoder-only LM for the dense family (port of
+"""Decoder-only LM for the dense, MoE, SSM and hybrid families (port of
 ``repro/models/transformer.py``).
 
 Per-layer parameters are stacked along a leading ``L`` axis, as in the
 reference; the reference's ``lax.scan`` over that axis becomes a Python loop
-over the ``L`` slices.  Entry points:
+over the ``L`` slices.  Heterogeneous local/global attention stacks (gemma,
+hymba) take each layer's ``is_global`` flag from the config.  Entry points:
 
-* ``forward``     -- full-sequence logits (no cache);
-* ``prefill``     -- full-sequence forward that also fills a KV cache;
+* ``forward``     -- full-sequence logits (no cache) and the MoE aux loss;
+* ``prefill``     -- full-sequence forward that also fills the KV/SSM caches;
 * ``decode_step`` -- one token per slot at a shared length;
-* ``chunk_step``  -- per-slot chunks at per-slot offsets (``chunked`` policy);
-* ``flat_step``   -- one flat ragged token batch (``flat`` policy).
+* ``chunk_step``  -- per-slot chunks at per-slot offsets (``chunked`` policy;
+  one token per slot for the SSM and hybrid families, as in the reference);
+* ``flat_step``   -- one flat ragged token batch (``flat`` policy; refused for
+  the SSM and hybrid families, as in the reference).
 
-``loss_fn`` and rematerialization wait for the training slice.
+The enc-dec and VLM families, ``loss_fn`` and rematerialization wait for
+later slices.
 """
 from __future__ import annotations
 
@@ -21,52 +25,77 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
+
+_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
+def _check_family(cfg, what: str) -> None:
+    """Raise for the families of later slices (enc-dec, VLM)."""
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(
+            f"{what}: family {cfg.family!r} is not ported yet (ported: "
+            f"{', '.join(_FAMILIES)})")
 
 
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
-def _normal(gen: torch.Generator, shape: tuple, std: float,
-            dev: torch.device) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, dtype=torch.float32, device=dev) * std
+def init_block(cfg, generator: torch.Generator, device="cuda") -> dict:
+    """One layer's latent fp32 params (the reference's ``_init_block``),
+    drawn from ``generator``, which must live on ``device``."""
+    _check_family(cfg, "init_block")
+    if not cfg.ternary:
+        raise NotImplementedError(
+            f"init_block: only ternary configs are ported (got {cfg.name!r})")
+    dev = resolve_device(device)
+    d = cfg.d_model
+    if cfg.family == "ssm":
+        return {"ln1": layers.init_rmsnorm(d, dev), "ssm": ssm_lib.init_ssm(cfg, generator, dev)}
+    p = {"ln1": layers.init_rmsnorm(d, dev),
+         "attn": layers.init_attention(cfg, generator, dev),
+         "ln2": layers.init_rmsnorm(d, dev)}
+    if cfg.is_moe:
+        p["moe"] = moe_lib.init_moe(cfg, generator, dev)
+    else:
+        p["mlp"] = layers.init_mlp(cfg, generator, dev)
+    if cfg.family == "hybrid":
+        p["ssm"] = ssm_lib.init_ssm(cfg, generator, dev)
+        p["ln_attn"] = layers.init_rmsnorm(d, dev)
+        p["ln_ssm"] = layers.init_rmsnorm(d, dev)
+    return p
+
+
+def stack_layers(blocks: list):
+    """Per-layer trees -> one tree with every leaf stacked along a leading
+    ``L`` axis."""
+    if isinstance(blocks[0], dict):
+        return {k: stack_layers([b[k] for b in blocks]) for k in blocks[0]}
+    return torch.stack(blocks)
+
+
+def init_head(cfg, generator: torch.Generator, device="cuda") -> dict:
+    """The params outside the layer stack: the embedding, the final norm
+    and, untied, the fp ``lm_head``."""
+    dev = resolve_device(device)
+    d = cfg.d_model
+    params = {"embed": layers.normal(generator, (cfg.padded_vocab, d), 0.02, dev),
+              "ln_f": layers.init_rmsnorm(d, dev)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {
+            "wd": layers.normal(generator, (d, cfg.padded_vocab), 1.0 / math.sqrt(d), dev)}
+    return params
 
 
 def init_params(cfg, generator: torch.Generator, device="cuda") -> dict:
-    """Latent fp32 params, stacked per layer.  ``generator`` must live on
-    ``device``.  The layout (and every leaf name) matches the reference's
-    ``init_params``; the random numbers do not."""
-    if cfg.family != "dense" or cfg.is_moe or not cfg.ternary:
-        raise NotImplementedError(
-            f"init_params: only the dense ternary family is ported "
-            f"(got {cfg.name!r})")
-    dev = resolve_device(device)
-    n_l, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
-    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-
-    def lin(k: int, m: int) -> dict:
-        return {"w": _normal(generator, (n_l, k, m), 1.0 / math.sqrt(k), dev)}
-
-    def norm(width: int) -> dict:
-        return {"g": torch.zeros((n_l, width), dtype=torch.float32, device=dev)}
-
-    attn = {"wq": lin(d, h * dh), "wk": lin(d, hk * dh),
-            "wv": lin(d, hk * dh), "wo": lin(h * dh, d)}
-    if cfg.qk_norm:
-        attn["qn"], attn["kn"] = norm(dh), norm(dh)
-    if cfg.mlp_gated:
-        mlp = {"w_gate": lin(d, f), "w_up": lin(d, f), "w_down": lin(f, d)}
-    else:
-        mlp = {"w_up": lin(d, f), "w_down": lin(f, d)}
-    params = {
-        "blocks": {"ln1": norm(d), "attn": attn, "ln2": norm(d), "mlp": mlp},
-        "embed": _normal(generator, (cfg.padded_vocab, d), 0.02, dev),
-        "ln_f": {"g": torch.zeros((d,), dtype=torch.float32, device=dev)},
-    }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = {
-            "wd": _normal(generator, (d, cfg.padded_vocab), 1.0 / math.sqrt(d), dev)}
-    return params
+    """Latent fp32 params: each layer drawn by :func:`init_block`, then the
+    layers stacked, as the reference's ``init_params`` builds them.
+    ``generator`` must live on ``device``.  The layout (and every leaf name)
+    matches the reference's; the random numbers do not."""
+    blocks = [init_block(cfg, generator, device) for _ in range(cfg.n_layers)]
+    return {"blocks": stack_layers(blocks), **init_head(cfg, generator, device)}
 
 
 def layer_slice(tree, i: int):
@@ -80,50 +109,84 @@ def layer_slice(tree, i: int):
 # Blocks
 # ---------------------------------------------------------------------------
 
-def _dense_only(cfg, what: str) -> None:
-    if cfg.family != "dense" or cfg.is_moe:
-        raise NotImplementedError(
-            f"{what}: only the dense family is ported (got {cfg.family!r})")
-
-
 def _block(cfg, p: dict, x: torch.Tensor, *, flag: bool, pos: torch.Tensor, mode: str,
            cache: dict | None = None, cache_len=None,
-           slot: torch.Tensor | None = None) -> tuple[torch.Tensor, dict | None]:
-    """One dense layer.  ``mode``: ``"fwd"`` (no cache), ``"prefill"`` (the
-    prompt's K/V written to ``cache`` from row 0) or ``"decode"`` (attention
-    against ``cache`` with ``cache_len`` or ``slot``).  Returns (x, updated
-    cache or None)."""
+           slot: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor | float,
+                                                      dict | None]:
+    """One layer.  ``mode``: ``"fwd"`` (no cache), ``"prefill"`` (the
+    prompt's K/V written to ``cache`` from row 0, the SSM conv tail and
+    final state returned) or ``"decode"`` (attention against ``cache`` with
+    ``cache_len`` or ``slot``, one recurrent SSM step).  Returns (x, the MoE
+    aux loss (0.0 without MoE), updated cache or None)."""
+    aux = 0.0
+    new_cache: dict = {}
     h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    new_cache = None
+
+    def ssm_branch() -> torch.Tensor:
+        if mode == "decode":
+            y, sc = ssm_lib.ssm_decode_step(cfg, p["ssm"], h, cache)
+            new_cache.update(sc)
+            return y
+        y, final = ssm_lib.ssm_forward(cfg, p["ssm"], h)
+        if mode == "prefill":
+            new_cache.update(_ssm_prefill_cache(cfg, p["ssm"], h, final))
+        return y
+
+    if cfg.family == "ssm":
+        return x + ssm_branch(), aux, (new_cache or None)
+
     if mode == "decode":
-        attn_out, new_cache = layers.attention(cfg, p["attn"], h, pos=pos, is_global=flag,
-                                               cache=cache, cache_len=cache_len, slot=slot)
+        attn_out, ac = layers.attention(cfg, p["attn"], h, pos=pos, is_global=flag,
+                                        cache={"k": cache["k"], "v": cache["v"]},
+                                        cache_len=cache_len, slot=slot)
+        new_cache.update(ac)
     elif mode == "prefill":
         attn_out, (k, v) = layers.attention(cfg, p["attn"], h, pos=pos, is_global=flag,
                                             return_kv=True)
         zero = torch.zeros((x.shape[0],), dtype=torch.long)
-        new_cache = {"k": layers.write_rows(cache["k"], k, zero),
-                     "v": layers.write_rows(cache["v"], v, zero)}
+        new_cache.update({"k": layers.write_rows(cache["k"], k, zero),
+                          "v": layers.write_rows(cache["v"], v, zero)})
     else:
         attn_out, _ = layers.attention(cfg, p["attn"], h, pos=pos, is_global=flag)
+
+    if cfg.family == "hybrid":
+        # Hymba: the mean of the per-branch normalized outputs.
+        attn_out = 0.5 * (layers.rmsnorm(p["ln_attn"], attn_out, cfg.norm_eps)
+                          + layers.rmsnorm(p["ln_ssm"], ssm_branch(), cfg.norm_eps))
     x = x + attn_out
+
     h2 = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + layers.mlp(p["mlp"], h2), new_cache
+    if cfg.is_moe:
+        y, aux = moe_lib.moe_forward(cfg, p["moe"], h2)
+    else:
+        y = layers.mlp(p["mlp"], h2)
+    return x + y, aux, (new_cache or None)
+
+
+def _ssm_prefill_cache(cfg, p: dict, h: torch.Tensor, final_state: torch.Tensor) -> dict:
+    """Conv tail + final SSD state so decode can continue the recurrence.
+    The pre-conv xBC tail is recomputed: one more ``in_proj`` call, on the
+    last W-1 positions."""
+    tail = h[:, -(cfg.ssm_conv_width - 1):, :]
+    _, xs, bs, cs, _ = ssm_lib._split_in(cfg, layers.linear(p["in_proj"], tail))
+    return {"conv": torch.cat([xs, bs, cs], dim=-1), "state": final_state}
 
 
 def _layers(cfg, params: dict, x: torch.Tensor, cache: dict | None,
-            **kw) -> tuple[torch.Tensor, dict | None]:
+            **kw) -> tuple[torch.Tensor, torch.Tensor | float, dict | None]:
     """x through every layer (the reference's scan over the stacked
-    params); the per-layer caches come back stacked along ``L``."""
-    new = []
+    params).  Returns (x, the summed aux loss, the per-layer caches stacked
+    along ``L`` or None)."""
+    new, aux = [], 0.0
     for i in range(cfg.n_layers):
-        x, nc = _block(cfg, layer_slice(params["blocks"], i), x,
-                       flag=cfg.layer_is_global(i),
-                       cache=None if cache is None else layer_slice(cache, i), **kw)
+        x, a, nc = _block(cfg, layer_slice(params["blocks"], i), x,
+                          flag=cfg.layer_is_global(i),
+                          cache=None if cache is None else layer_slice(cache, i), **kw)
+        aux = aux + a
         new.append(nc)
     if cache is None:
-        return x, None
-    return x, {name: torch.stack([nc[name] for nc in new]) for name in new[0]}
+        return x, aux, None
+    return x, aux, {name: torch.stack([nc[name] for nc in new]) for name in new[0]}
 
 
 def _head(cfg, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -147,34 +210,51 @@ def _embed(cfg, params: dict, tokens: torch.Tensor) -> torch.Tensor:
 # Entry points
 # ---------------------------------------------------------------------------
 
-def forward(cfg, params: dict, batch: dict) -> tuple[torch.Tensor, float]:
+def forward(cfg, params: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor | float]:
     """Teacher-forced logits (B, S, V) of ``batch["tokens"]`` (B, S), and the
-    auxiliary loss (0 for the dense family)."""
-    _dense_only(cfg, "forward")
+    auxiliary loss summed over the layers (a float32 scalar tensor; 0.0
+    without MoE layers)."""
+    _check_family(cfg, "forward")
     x = _embed(cfg, params, batch["tokens"])
     pos = torch.arange(x.shape[1], device=x.device)
-    x, _ = _layers(cfg, params, x, None, pos=pos, mode="fwd")
-    return _head(cfg, params, x), 0.0
+    x, aux, _ = _layers(cfg, params, x, None, pos=pos, mode="fwd")
+    return _head(cfg, params, x), aux
+
+
+def cache_shapes(cfg, batch_size: int, max_len: int) -> dict[str, tuple]:
+    """Leaf name -> shape of :func:`init_cache`: attention K/V
+    (L, B, max_len, Hkv, Dh); SSM conv tail (L, B, W-1, conv_dim) and SSD
+    state (L, B, H, P, N)."""
+    _check_family(cfg, "init_cache")
+    n_l = cfg.n_layers
+    shapes = {}
+    if cfg.family != "ssm":
+        shapes["k"] = shapes["v"] = (n_l, batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.family in ("ssm", "hybrid"):
+        _, n, nh, conv_dim = ssm_lib._dims(cfg)
+        shapes["conv"] = (n_l, batch_size, cfg.ssm_conv_width - 1, conv_dim)
+        shapes["state"] = (n_l, batch_size, nh, cfg.ssm_head_dim, n)
+    return shapes
 
 
 def init_cache(cfg, batch_size: int, max_len: int, dtype=torch.float32,
                device="cuda") -> dict:
-    """Stacked per-layer K/V caches (L, B, max_len, Hkv, Dh), zero-filled."""
-    _dense_only(cfg, "init_cache")
+    """Stacked per-layer decode caches (leading axis L), zero-filled; see
+    :func:`cache_shapes`."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    return {name: torch.zeros(shape, dtype=dtype, device=dev)
+            for name, shape in cache_shapes(cfg, batch_size, max_len).items()}
 
 
 def prefill(cfg, params: dict, batch: dict, cache: dict) -> tuple[torch.Tensor, dict]:
-    """Run the prompt ``batch["tokens"]`` (B, S) and write its K/V into
-    ``cache`` rows [0, S).  Returns (last-position logits (B, 1, V), cache);
-    the head runs on the last row only."""
-    _dense_only(cfg, "prefill")
+    """Run the prompt ``batch["tokens"]`` (B, S): its K/V go into ``cache``
+    rows [0, S), the SSM conv tail and final state replace the SSM leaves.
+    Returns (last-position logits (B, 1, V), cache); the head runs on the
+    last row only."""
+    _check_family(cfg, "prefill")
     x = _embed(cfg, params, batch["tokens"])
     pos = torch.arange(x.shape[1], device=x.device)
-    x, new_cache = _layers(cfg, params, x, cache, pos=pos, mode="prefill")
+    x, _, new_cache = _layers(cfg, params, x, cache, pos=pos, mode="prefill")
     return _head(cfg, params, x[:, -1:, :]), new_cache
 
 
@@ -182,10 +262,11 @@ def decode_step(cfg, params: dict, tokens: torch.Tensor, cache: dict,
                 t) -> tuple[torch.Tensor, dict]:
     """One decode step: ``tokens`` (B, 1) at the shared length ``t``.
     Returns (logits (B, 1, V), updated cache)."""
-    _dense_only(cfg, "decode_step")
+    _check_family(cfg, "decode_step")
     x = _embed(cfg, params, tokens)
     pos = torch.tensor([int(t)], device=x.device)
-    x, new_cache = _layers(cfg, params, x, cache, pos=pos, mode="decode", cache_len=int(t))
+    x, _, new_cache = _layers(cfg, params, x, cache, pos=pos, mode="decode",
+                              cache_len=int(t))
     return _head(cfg, params, x), new_cache
 
 
@@ -199,13 +280,19 @@ def chunk_step(cfg, params: dict, tokens: torch.Tensor, pos: torch.Tensor, cache
     (B,) -- per-slot K/V write offsets.  A slot's first chunk may start at a
     nonzero offset over a pre-populated cache (a prefix-cache fork):
     attention masks by absolute position, so the chunk attends over the
-    forked prefix as if the slot had prefilled it.
+    forked prefix as if the slot had prefilled it.  The SSM and hybrid
+    recurrences take C == 1 only (their prompts go through ``prefill``), as
+    in the reference.
 
     Returns (logits (B, C, V), updated cache); the head runs on every row.
     """
-    _dense_only(cfg, "chunk_step")
+    _check_family(cfg, "chunk_step")
+    if cfg.family in ("ssm", "hybrid") and tokens.shape[1] != 1:
+        raise ValueError(f"chunk_step: the {cfg.family} recurrence takes one token per "
+                         f"slot (C == 1), got C = {tokens.shape[1]}")
     x = _embed(cfg, params, tokens)
-    x, new_cache = _layers(cfg, params, x, cache, pos=pos, mode="decode", cache_len=lengths)
+    x, _, new_cache = _layers(cfg, params, x, cache, pos=pos, mode="decode",
+                              cache_len=lengths)
     return _head(cfg, params, x), new_cache
 
 
@@ -217,13 +304,18 @@ def flat_step(cfg, params: dict, tokens: torch.Tensor, slot: torch.Tensor,
     tokens/slot/pos (T,) — one ragged batch of real tokens from many slots
     (padding rows carry slot sentinel B); cache {'k','v'} (L, B, Vtok, Hk,
     Dh); emit_row (B,) — each slot's flat row whose logits it samples.
+    Refused for the SSM and hybrid families: the flat layout needs
+    KV-cache attention, as in the reference.
 
     Returns (logits (B, V) gathered at ``emit_row``, updated cache).  The
     head runs on B rows, not T.
     """
-    _dense_only(cfg, "flat_step")
+    _check_family(cfg, "flat_step")
+    if cfg.family in ("ssm", "hybrid"):
+        raise ValueError(f"flat_step: the {cfg.family} recurrence needs the "
+                         "rectangular layout (flat needs KV-cache attention)")
     x = _embed(cfg, params, tokens)[None, :, :]
-    x, new_cache = _layers(cfg, params, x, cache, pos=pos, mode="decode", slot=slot)
+    x, _, new_cache = _layers(cfg, params, x, cache, pos=pos, mode="decode", slot=slot)
     sel = x[0, emit_row]                       # (B, D) emitting rows only
     logits = _head(cfg, params, sel[None])     # (1, B, V)
     return logits[0], new_cache

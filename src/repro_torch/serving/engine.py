@@ -23,7 +23,9 @@ once at init (or supplied) picks each projection's kernel, and every model
 call runs inside it: planned ``tsar_sparse_padded`` on a layer with pools
 runs the hand-written sparse kernel, the rest the ``tsar_matmul`` kernel.
 
-Latent (``packed=False``) serving and the non-dense families are later
+The dense, MoE, SSM and hybrid families are served; the SSM and hybrid
+recurrences take the ``whole`` policy only, as in the reference.  Latent
+(``packed=False``) serving and the enc-dec and VLM families are later
 slices.
 """
 from __future__ import annotations
@@ -253,8 +255,8 @@ class ServingEngine:
                  prefix_cache: bool | int = False, tracer=None, device="cuda"):
         if not packed:
             raise _later_slice("latent (packed=False) serving", "training")
-        if cfg.family != "dense" or cfg.is_moe:
-            raise _later_slice(f"family {cfg.family!r}", "other model families")
+        if cfg.family in ("encdec", "vlm"):
+            raise _later_slice(f"family {cfg.family!r}", "enc-dec and VLM")
         if policy is None:
             policy = "flat" if cfg.family in _CHUNKABLE_FAMILIES else "whole"
         elif policy not in _POLICIES:

@@ -86,12 +86,14 @@ def engine_counters(engine) -> dict:
     return out
 
 
-def run_pair(arch: str, kw: dict, make_requests):
+def run_pair(arch: str, kw: dict, make_requests, cfg=None):
     """Serve ``make_requests(cls)`` through the reference engine
     (``packed=True``) and the port's (its frozen params carried across, on
-    the CPU) with the same options.  Returns (ref, port, ref_requests,
-    port_requests, ref_plans, port_plans)."""
-    cfg, latent = reference_latent(arch)
+    the CPU) with the same options; ``cfg`` replaces the reduced config
+    (same params, e.g. another ``capacity_factor``).  Returns (ref, port,
+    ref_requests, port_requests, ref_plans, port_plans)."""
+    ref_cfg, latent = reference_latent(arch)
+    cfg = cfg or ref_cfg
     ref = JServingEngine(cfg, latent, packed=True, **kw)
     # The reference step spells every projection as the planes decode ->
     # int8 dot only when the plan is tsar_mxu and no pools exist.

@@ -102,14 +102,15 @@ def test_cuda_device_raises_without_gpu(ref_latent):
         ServingEngine(cfg, {}, device="cuda")
 
 
-@pytest.mark.parametrize("case", ["packed=False", "family=ssm"])
+@pytest.mark.parametrize("case", ["packed=False", "family=encdec", "family=vlm"])
 def test_unported_options_raise(case, ref_latent):
     cfg, _ = ref_latent
     kw = {}
     if case == "packed=False":
         kw["packed"] = False
     else:
-        cfg = jconfigs.get("mamba2-780m").reduced()
+        arch = {"family=encdec": "whisper-tiny", "family=vlm": "llava-next-mistral-7b"}[case]
+        cfg = jconfigs.get(arch).reduced()
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ServingEngine(cfg, {}, device="cpu", **kw)
 
