@@ -113,7 +113,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
    tail), the wrapper's pad copies counted; a reduced config's whole
    prefill + 4 decode steps on the card against the CPU within 1e-4;
 15. hybrid phase: the same for full-width ``hymba-1.5b`` (32 layers, 288
-   launches per decode step, 320 per whole prefill).
+   launches per decode step, 320 per whole prefill);
+16. enc-dec phase: full-width ``whisper-tiny`` (4 encoder + 4 decoder
+   layers, ``enc_seq`` 1500; the engine's frames are zeros, the reference's
+   stub) under ``whole``, twice on the 8 requests: equal greedy tokens,
+   ``tsar_matmul`` launches 64 per whole prefill (24 encoder, 40 decoder:
+   self-attention, cross-attention with its K/V over the 1500 encoder rows,
+   MLP) and 32 per decode step (the cross K/V come from the cache); a
+   reduced config's whole prefill over numpy-seeded random frames + 4
+   decode steps on the card against the CPU within 1e-4;
+17. VLM phase: full-width ``llava-next-mistral-7b`` (32 layers, 2880 zero
+   patch positions before every prompt, ``max_len`` 3072), drawn and
+   frozen one layer at a time, under ``whole``, twice: equal greedy tokens,
+   224 launches per whole prefill and per decode step (``frontend_proj`` is
+   a plain fp matmul and launches none), peak device memory printed; a
+   reduced config's prefill over numpy-seeded random patches + 4 decode
+   steps on the card against the CPU within 1e-4.
+
+Phase 7 also holds ``tsar_matmul`` at the enc-dec and VLM projections'
+(K, M) x N in {4, 20, 1500, 3008} (the encoder's 1500 frame rows, llava's
+2880 patches + a prompt) and on 1500 all-zero activation rows,
+``torch.equal`` to the plain version, timed at N = 4, 20 and the family's
+large N.
 
 Each engine run and each bitlinear run is a path: every launch count is set
 to 0 just before it and read just after.  Greedy tokens of two runs are
@@ -147,9 +168,14 @@ F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
 
 ARCH = "bitnet-2b-4t"
 MOE_ARCH, SSM_ARCH, HYBRID_ARCH = "deepseek-moe-16b", "mamba2-780m", "hymba-1.5b"
+ENCDEC_ARCH, VLM_ARCH = "whisper-tiny", "llava-next-mistral-7b"
 # Row counts of the family kernel phase: the SSM prefill's conv tail (3),
 # decode and flat widths (4, 20), chunked rows (64), a whole prompt (128).
 FAMILY_NS = (3, 4, 20, 64, 128)
+# Row counts at the enc-dec and VLM shapes: decode and flat widths, the
+# encoder's 1500 frame rows (whisper's enc_seq), llava's 2880 patch
+# positions + a 128-token prompt.
+LARGE_NS = (4, 20, 1500, 3008)
 KERNEL_SOURCES = ("tsar_matmul", "tsar_sparse", "tsar_lut")
 # Registry kernel -> the launch counter of its hand-written kernel
 # (``memory_lut`` and ``dense`` are plain PyTorch and launch none).
@@ -237,8 +263,10 @@ def bound(n: int, k: int, m: int) -> tuple[float, str]:
 
 def step_shapes(cfg) -> list[tuple[str, int, int]]:
     """(name, K, M) of one layer's BitLinear projections that run
-    ``tsar_matmul``: attention, the MLP or the shared experts (not the routed
-    experts), the SSM ``in_proj``/``out_proj``."""
+    ``tsar_matmul``: attention, the MLP (gated or not) or the shared experts
+    (not the routed experts), the SSM ``in_proj``/``out_proj``.  An enc-dec
+    layer's are its encoder layer's (the decoder adds a cross block of the
+    attention's shapes)."""
     d = cfg.d_model
     out = []
     if cfg.family != "ssm":
@@ -246,7 +274,8 @@ def step_shapes(cfg) -> list[tuple[str, int, int]]:
         out += [("wq", d, qd), ("wk", d, kvd), ("wv", d, kvd), ("wo", qd, d)]
         f = cfg.d_expert * cfg.n_shared_experts if cfg.is_moe else cfg.d_ff
         if f:
-            out += [("w_gate", d, f), ("w_up", d, f), ("w_down", f, d)]
+            out += ([("w_gate", d, f)] if cfg.mlp_gated else []) + [("w_up", d, f),
+                                                                    ("w_down", f, d)]
     if cfg.family in ("ssm", "hybrid"):
         di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
         out += [("in_proj", d, 2 * di + 2 * n + nh), ("out_proj", di, d)]
@@ -918,11 +947,15 @@ def predicted_launches(engine, widths: list, whole_prefills: int = 0) -> dict:
     ``tsar_matmul``, once per stacked layer.  The routed expert stacks
     (planes (L, E, K/8, M)) run the bf16 decode and no kernel; each whole
     prefill of an SSM layer calls its ``in_proj`` once more, on the last
-    W-1 rows (the conv tail)."""
+    W-1 rows (the conv tail); an enc-dec model's encoder layers and the
+    decoder's cross ``wk``/``wv`` run once per whole prefill, on the
+    ``enc_seq`` encoder rows, and never in a step."""
     from repro_torch.plan import registry
 
     want = dict.fromkeys(COUNTERS, 0)
-    tail = [engine.cfg.ssm_conv_width - 1] * whole_prefills
+    cfg = engine.cfg
+    tail = [cfg.ssm_conv_width - 1] * whole_prefills
+    enc_rows = [cfg.enc_seq] * whole_prefills
     for name, (k, m, _c) in engine.plan.shapes.items():
         node = engine.params
         for key in name.split("/"):
@@ -930,7 +963,11 @@ def predicted_launches(engine, widths: list, whole_prefills: int = 0) -> dict:
         if node["sign"].ndim > 3:
             continue
         layer = {key: v[0] for key, v in node.items()}
-        for w in widths + (tail if name.endswith("ssm/in_proj") else []):
+        if name.startswith("enc_blocks/") or name.endswith(("xattn/wk", "xattn/wv")):
+            rows = enc_rows
+        else:
+            rows = widths + (tail if name.endswith("ssm/in_proj") else [])
+        for w in rows:
             lp = engine.plan.lookup_shape(k, m, w)
             kern = None if lp is None else lp.kernel
             if kern in registry.SPARSE_KERNELS:
@@ -970,7 +1007,7 @@ def run_path(torch, engine, reqs, label: str) -> dict:
         return plan
 
     def recording_prefill_slot(i, st):
-        widths.append(len(st.prompt))
+        widths.append(len(st.prompt) + st.extra)       # a VLM's patches lead the prompt
         return prefill_slot(i, st)
 
     def checked_sample(logits, temps):
@@ -1148,12 +1185,12 @@ def init_frozen(torch, cfg, kill_blocks: bool = False, by_block: bool = False,
     return params
 
 
-def dense_engine(torch, cfg, params, **kw):
+def dense_engine(torch, cfg, params, max_len: int = 256, **kw):
     """The dense phases' engine: 4 slots, ``prefill_chunk`` 16, ``block_size``
     16, ``max_len`` 256 on the card; ``kw`` adds options."""
     from repro_torch.serving import ServingEngine
 
-    return ServingEngine(cfg, params, max_len=256, batch_slots=4, prefill_chunk=16,
+    return ServingEngine(cfg, params, max_len=max_len, batch_slots=4, prefill_chunk=16,
                          device=torch.device("cuda"), **kw)
 
 
@@ -1416,10 +1453,15 @@ def cpu_agreement(torch, cfg_full, tol: float = 1e-4) -> None:
              f"reduced {cfg.name} flat_step on the GPU disagrees with the CPU")
 
 
-def recurrent_agreement(torch, cfg_full, tol: float = 1e-4) -> None:
-    """Reduced SSM/hybrid config: one whole prefill of 16 tokens and 4
-    decode steps (fixed tokens) on the GPU and on the CPU with the same
-    frozen weights give logits within ``tol``."""
+def whole_agreement(torch, cfg_full, tol: float = 1e-4) -> None:
+    """Reduced config: one whole prefill of 16 tokens and 4 decode steps
+    (fixed tokens) on the GPU and on the CPU with the same frozen weights
+    give logits within ``tol``.  An enc-dec prefill encodes, and a VLM
+    prefill projects, numpy-seeded random frames or patches (the engine's
+    are zeros), so the encoder, the cross-attention and ``frontend_proj``
+    do real work; a VLM's decode positions follow its patches."""
+    import numpy as np
+
     from repro_torch.models import model_zoo
     from repro_torch.serving import freeze_params
 
@@ -1427,18 +1469,30 @@ def recurrent_agreement(torch, cfg_full, tol: float = 1e-4) -> None:
     params_cpu = freeze_params(model_zoo.init_params(
         cfg, torch.Generator().manual_seed(0), "cpu"))
     toks = torch.arange(40).reshape(2, 20) * 37 % cfg.vocab_size
+    rng = np.random.default_rng(0)
+    stubs = {}
+    if cfg.family == "encdec":
+        stubs["frames"] = rng.standard_normal((2, cfg.enc_seq, cfg.d_model), dtype=np.float32)
+    if cfg.family == "vlm":
+        stubs["patches"] = rng.standard_normal((2, cfg.frontend_seq, cfg.frontend_dim),
+                                               dtype=np.float32)
+    extra = cfg.frontend_seq if cfg.family == "vlm" else 0
     outs = {}
     for dev in ("cpu", "cuda"):
         params = _to(torch, params_cpu, dev)
-        cache = model_zoo.init_cache(cfg, 2, 32, device=dev)
-        logits, cache = model_zoo.prefill(cfg, params, {"tokens": toks[:, :16].to(dev)}, cache)
+        cache = model_zoo.init_cache(cfg, 2, 32 + extra, device=dev)
+        batch = {"tokens": toks[:, :16].to(dev),
+                 **{k: torch.from_numpy(v).to(dev) for k, v in stubs.items()}}
+        logits, cache = model_zoo.prefill(cfg, params, batch, cache)
         seq = [logits[:, -1]]
         for t in range(16, 20):
-            lg, cache = model_zoo.decode_step(cfg, params, toks[:, t:t + 1].to(dev), cache, t)
+            lg, cache = model_zoo.decode_step(cfg, params, toks[:, t:t + 1].to(dev), cache,
+                                              t + extra)
             seq.append(lg[:, 0])
         outs[dev] = torch.stack(seq).cpu()
     diff = (outs["cuda"] - outs["cpu"]).abs().max().item()
-    print(f"reduced {cfg.name} prefill + 4 decode steps GPU vs CPU: max abs diff "
+    what = "".join(f" over random {k}" for k in stubs)
+    print(f"reduced {cfg.name} prefill{what} + 4 decode steps GPU vs CPU: max abs diff "
           f"{diff:.3g} (tol {tol:.3g})", flush=True)
     _require(torch.allclose(outs["cuda"], outs["cpu"], rtol=tol, atol=tol),
              f"reduced {cfg.name} prefill/decode on the GPU disagrees with the CPU")
@@ -1636,15 +1690,19 @@ def moe_phase(torch, cfg) -> dict:
     return {"runs": runs, "cross_policy_same": same}
 
 
-def recurrent_phase(torch, cfg, per_step: int, per_prefill: int) -> dict:
-    """Full-width SSM or hybrid serving under ``whole``, twice: equal
-    greedy tokens, ``tsar_matmul`` launches per_step per decode step plus
-    per_prefill per whole prefill, and the wrapper's pad copies counted."""
+def whole_phase(torch, cfg, per_step: int, per_prefill: int, by_block: bool = True,
+                max_len: int = 256) -> dict:
+    """Full-width serving under ``whole`` (the SSM, hybrid, enc-dec and VLM
+    families), twice: equal greedy tokens, ``tsar_matmul`` launches
+    per_step per decode step plus per_prefill per whole prefill, the
+    wrapper's pad copies counted, the phase's peak device memory; then the
+    reduced config against the CPU."""
     from repro_torch.kernels import tsar_matmul as tm
     from repro_torch.serving import Request
 
     label = cfg.family
-    params = init_frozen(torch, cfg, by_block=True, label=label)
+    params = init_frozen(torch, cfg, by_block=by_block, label=label)
+    torch.cuda.reset_peak_memory_stats()
     pad = tm.pad_for_tma
     copies = {}          # row count of the call -> pad copies made
 
@@ -1658,7 +1716,8 @@ def recurrent_phase(torch, cfg, per_step: int, per_prefill: int) -> dict:
     tm.pad_for_tma = counting_pad
     try:
         for i in range(2):
-            engine = dense_engine(torch, cfg, params, profile_density=i == 0)
+            engine = dense_engine(torch, cfg, params, max_len=max_len,
+                                  profile_density=i == 0)
             _require(engine.policy == "whole", f"{label}: policy {engine.policy}")
             copies.clear()
             run = run_path(torch, engine, make_requests(Request, cfg), f"{label} whole run {i + 1}")
@@ -1671,8 +1730,10 @@ def recurrent_phase(torch, cfg, per_step: int, per_prefill: int) -> dict:
                      f"expected {per_step} x {run['steps']} steps + {per_prefill} x "
                      f"{run['whole_prefills']} whole prefills = {want}")
             runs.append(run)
+            del engine
     finally:
         tm.pad_for_tma = pad
+    peak = torch.cuda.max_memory_allocated() / 2**30
     same_tokens(torch, runs[0], runs[1], f"{label} whole run 1 vs run 2")
     r = runs[0]
     print(f"{label}: {cfg.name} tokens equal across two runs | launches {per_step}/decode "
@@ -1680,9 +1741,48 @@ def recurrent_phase(torch, cfg, per_step: int, per_prefill: int) -> dict:
           f"{r['pad_copies']} over {r['launches']['tsar_matmul']} launches, "
           f"{r['pad_copies_per_step']:g} per decode step | decode {r['decode_ms']:.2f} ms/step, "
           f"whole prefill {r['prefill_ms']:.2f} ms/call, TTFT p50 {r['ttft_ms']:.1f} ms, "
-          f"TPOT p50 {r['tpot_ms']:.2f} ms", flush=True)
-    recurrent_agreement(torch, cfg)
-    return {"runs": runs}
+          f"TPOT p50 {r['tpot_ms']:.2f} ms | peak device memory {peak:.2f} GiB | "
+          f"{gpu_line()}", flush=True)
+    del params
+    whole_agreement(torch, cfg)
+    return {"runs": runs, "peak_gib": peak}
+
+
+def large_kernel_phase(torch, cfgs: dict) -> dict:
+    """``tsar_matmul`` at every (K, M) of the enc-dec and VLM models' kernel
+    projections x ``LARGE_NS`` rows, ``torch.equal`` to the plain version,
+    timed at N = 4, 20 and the model's large N (``cfgs``: config -> large
+    N); at N = 1500 all-zero activation rows (the engine's stub frames and
+    patches) through ``ops.tsar_matmul`` equal the plain version and give a
+    zero, finite output."""
+    from repro_torch.core import ternary
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows = {}
+    for cfg, large in cfgs.items():
+        for k, m in sorted({(k, m) for _, k, m in step_shapes(cfg)}):
+            for n in LARGE_NS:
+                rows[(n, k, m)] = matmul_point(torch, gen, n, k, m, timed=n in (4, 20, large))
+            x = torch.zeros((1500, k), device=dev)
+            t = torch.randint(-1, 2, (k, m), generator=gen, device=dev).to(torch.float32)
+            tw = ternary.pack(t, torch.rand((m,), generator=gen, device=dev) + 0.01)
+            got, want = ops.tsar_matmul(x, tw), ref.quantized_matmul_ref(x, tw)
+            _require(torch.equal(got, want) and not bool(got.abs().amax() > 0)
+                     and bool(torch.isfinite(got).all()),
+                     f"tsar_matmul on 1500 zero rows at K={k} M={m}")
+            print(f"tsar_matmul K={k} M={m} ({cfg.name}): equal to the plain version at "
+                  f"N in {LARGE_NS} and on 1500 all-zero rows", flush=True)
+    for cfg, large in cfgs.items():
+        shapes = step_shapes(cfg)
+        for n in (4, 20, large):
+            tot = {key: sum(rows[(n, k, m)][key] for _, k, m in shapes)
+                   for key in ("ms", "bound_ms", "library_ms")}
+            print(f"{cfg.name}: one layer's {len(shapes)} projections at N={n}: tsar_matmul "
+                  f"{tot['ms']:.4f} ms (bound {tot['bound_ms']:.4f} ms, _int_mm "
+                  f"{tot['library_ms']:.4f} ms)", flush=True)
+    return {"rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows.values())}
 
 
 def _to(torch, tree, dev):
@@ -1744,6 +1844,8 @@ def main() -> int:
     compact = compact_kernel_phase(torch, cfg)
     family_cfgs = [configs.get(a) for a in (MOE_ARCH, SSM_ARCH, HYBRID_ARCH)]
     family_kernel_phase(torch, family_cfgs)
+    encdec_cfg, vlm_cfg = configs.get(ENCDEC_ARCH), configs.get(VLM_ARCH)
+    large_kernel_phase(torch, {encdec_cfg: encdec_cfg.enc_seq, vlm_cfg: LARGE_NS[-1]})
     # 8-15. paths, each run with the launch counts zeroed just before it
     params = init_frozen(torch, cfg, kill_blocks=False)
     flat_run = engine_phase(torch, cfg, params, profile=args.profile)
@@ -1759,8 +1861,20 @@ def main() -> int:
     moe_phase(torch, moe_cfg)
     for fcfg in (ssm_cfg, hybrid_cfg):
         shapes = step_shapes(fcfg)
-        recurrent_phase(torch, fcfg, per_step=len(shapes) * fcfg.n_layers,
-                        per_prefill=(len(shapes) + 1) * fcfg.n_layers)
+        whole_phase(torch, fcfg, per_step=len(shapes) * fcfg.n_layers,
+                    per_prefill=(len(shapes) + 1) * fcfg.n_layers)
+    # 16-17. the enc-dec and VLM families' serving paths at full width.  A
+    # decoder layer runs its self-attention, the cross block's wq and wo and
+    # the MLP in every call; a whole prefill adds the encoder's layers and
+    # the cross wk and wv over the encoder rows.
+    per_layer = len(step_shapes(encdec_cfg))                  # 4 attention + 2 MLP
+    whole_phase(torch, encdec_cfg, per_step=(per_layer + 2) * encdec_cfg.n_layers,
+                per_prefill=per_layer * encdec_cfg.n_enc_layers
+                + (per_layer + 4) * encdec_cfg.n_layers, by_block=False)
+    per_layer = len(step_shapes(vlm_cfg))
+    whole_phase(torch, vlm_cfg, per_step=per_layer * vlm_cfg.n_layers,
+                per_prefill=per_layer * vlm_cfg.n_layers,
+                max_len=vlm_cfg.frontend_seq + 128 + 64)
 
     # Per kernel, the seven projections at N=4: times 30 layers for the two
     # kernels of the serving step (one decode step), one layer for the two of

@@ -3,9 +3,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch bitnet-2b-4t \
         --requests 8 --max-new 16
 
-``--arch`` takes a dense, MoE, SSM or hybrid config (``bitnet-2b-4t``,
-``deepseek-moe-16b``, ``mamba2-780m``, ``hymba-1.5b``, ...; the SSM and
-hybrid ones run the ``whole`` policy).  ``--smoke`` serves the reduced
+``--arch`` takes any config of every family (``bitnet-2b-4t``,
+``deepseek-moe-16b``, ``mamba2-780m``, ``hymba-1.5b``, ``whisper-tiny``,
+``llava-next-mistral-7b``, ...; the SSM, hybrid, enc-dec and VLM ones run
+the ``whole`` policy, the enc-dec encoder on zero frames and the VLM on
+zero patches, the reference's stubs).  ``--max-len`` defaults to 128 plus
+a VLM's ``frontend_seq`` patch positions.  ``--smoke`` serves the reduced
 config; ``--device cpu`` runs the plain PyTorch path on the CPU.  Weights
 are random (seed 0): nothing is downloaded.  ``--sparse`` and ``--sparse-block`` set the freeze's padded
 block pools; ``--plan-file`` loads an execution plan (the reference's JSON
@@ -38,7 +41,8 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
-    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--max-len", type=int, default=None,
+                    help="cache positions per slot (default 128, plus a VLM's patches)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--sparse", choices=sorted(_SPARSE), default="auto",
                     help="padded block-sparse pools: where blocks die (auto), "
@@ -74,7 +78,8 @@ def main(argv=None):
         plan = ModelPlan.load(args.plan_file)
         print(f"plan: loaded {args.plan_file} ({len(plan.layers)} layers, "
               f"buckets {list(plan.buckets)})")
-    engine = ServingEngine(cfg, params, max_len=args.max_len,
+    max_len = args.max_len or 128 + (cfg.frontend_seq if cfg.family == "vlm" else 0)
+    engine = ServingEngine(cfg, params, max_len=max_len,
                            batch_slots=args.slots, plan=plan,
                            prefix_cache=args.prefix_cache, device=dev)
     if plan is None and args.plan_file:

@@ -7,8 +7,9 @@ hand-written kernels and the active execution plan), ``{'wd'}`` = plain
 dense fp.
 
 Attention has the reference's four branches (flat token-packed,
-synchronous decode, chunked append, full sequence).  Cross-attention
-(``kv_x``, enc-dec) and the latent ``{'w'}`` QAT forward are later slices.
+synchronous decode, chunked append, full sequence) and its cross-attention
+(``kv_x``, the enc-dec decoder).  The latent ``{'w'}`` QAT forward is a
+later slice.
 """
 from __future__ import annotations
 
@@ -44,13 +45,16 @@ def init_rmsnorm(d: int, dev: torch.device) -> dict:
     return {"g": torch.zeros((d,), dtype=torch.float32, device=dev)}
 
 
-def init_attention(cfg, generator: torch.Generator, dev: torch.device) -> dict:
+def init_attention(cfg, generator: torch.Generator, dev: torch.device,
+                   cross: bool = False) -> dict:
+    """Q/K/V/O projections, with qk-norm gains where the config asks for
+    them; a ``cross`` block (enc-dec) has none."""
     d, h, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {"wq": init_linear(generator, d, h * dh, dev),
          "wk": init_linear(generator, d, hk * dh, dev),
          "wv": init_linear(generator, d, hk * dh, dev),
          "wo": init_linear(generator, h * dh, d, dev)}
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["qn"], p["kn"] = init_rmsnorm(dh, dev), init_rmsnorm(dh, dev)
     return p
 
@@ -249,12 +253,16 @@ def _windowed(cfg, valid: torch.Tensor, kpos: torch.Tensor, qpos: torch.Tensor,
 
 
 def attention(cfg, p: dict, x: torch.Tensor, *, pos: torch.Tensor, is_global: bool,
-              causal: bool = True, cache: dict | None = None, cache_len=None,
+              kv_x: torch.Tensor | None = None, causal: bool = True,
+              cache: dict | None = None, cache_len=None,
               slot: torch.Tensor | None = None,
               return_kv: bool = False) -> tuple[torch.Tensor, dict | tuple | None]:
     """Self-attention with GQA, RoPE, qk-norm, the attention softcap and
-    sliding-window masking on local layers.  x (B, S, D).  The branch
-    follows the cache arguments, as in the reference:
+    sliding-window masking on local layers.  x (B, S, D).  With ``kv_x``
+    (B, T, D) it is cross-attention: K and V are projected from ``kv_x``,
+    neither side is rotated and nothing is masked (no cache; the enc-dec
+    decoder passes it).  The branch follows the cache arguments, as in the
+    reference:
 
     * ``cache`` and ``slot`` (flat token-packed, the ``flat`` serving
       policy): x (1, T, D) is a ragged batch of T tokens from many slots;
@@ -281,14 +289,16 @@ def attention(cfg, p: dict, x: torch.Tensor, *, pos: torch.Tensor, is_global: bo
     g = h // hk
     b, s, _ = x.shape
 
+    src = x if kv_x is None else kv_x
     q = _split_heads(linear(p["wq"], x), h, dh)         # (B,S,H,Dh)
-    k = _split_heads(linear(p["wk"], x), hk, dh)        # (B,S,Hk,Dh)
-    v = _split_heads(linear(p["wv"], x), hk, dh)
+    k = _split_heads(linear(p["wk"], src), hk, dh)      # (B,S|T,Hk,Dh)
+    v = _split_heads(linear(p["wv"], src), hk, dh)
     if "qn" in p:
         q = rmsnorm(p["qn"], q, cfg.norm_eps)
         k = rmsnorm(p["kn"], k, cfg.norm_eps)
-    q = rope(q, pos, cfg.rope_theta)
-    k = rope(k, pos, cfg.rope_theta)
+    if kv_x is None:                                    # no RoPE on cross-attention
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
 
     new_cache = None
     if cache is not None and slot is not None:
@@ -331,7 +341,7 @@ def attention(cfg, p: dict, x: torch.Tensor, *, pos: torch.Tensor, is_global: bo
         qabs = (pos if pos.ndim == 2 else pos[None, :].expand(b, s))[:, :, None]
         valid = _windowed(cfg, kpos <= qabs, kpos, qabs, is_global)   # (B,S,T)
         mask = valid[:, None, None, :, :]                   # (B,1,1,S,T)
-    elif causal:
+    elif causal and kv_x is None:
         qpos, kpos = pos[:, None], pos[None, :]
         mask = _windowed(cfg, kpos <= qpos, kpos, qpos, is_global)[None, None, None]
     else:
@@ -348,29 +358,36 @@ def attention(cfg, p: dict, x: torch.Tensor, *, pos: torch.Tensor, is_global: bo
     # gives every layout the same bits with high probability (not
     # certainty: a float64 value within its own error of a float32 rounding
     # boundary can still round either way).
-    qg = q.reshape(b, s, hk, g, dh).to(torch.float64)
+    qg = q.reshape(b, s, hk, g, dh)
     k64, v64 = k.to(torch.float64), v.to(torch.float64)
-
-    def attend(qc: torch.Tensor, maskc: torch.Tensor | None) -> torch.Tensor:
-        """One query block (B, Sq, Hk, G, Dh) against the full K/V."""
-        scores = torch.einsum("bshgd,bthd->bhgst", qc, k64) / math.sqrt(dh)
-        scores = softcap(scores, cfg.attn_softcap)
-        if maskc is not None:
-            scores = torch.where(maskc, scores, torch.finfo(scores.dtype).min)
-        probs = torch.softmax(scores, dim=-1)
-        return torch.einsum("bhgst,bthd->bshgd", probs, v64).to(x.dtype)
-
     # Long sequences: one query block at a time, each against its full key
     # row (exact), so the (Sq, T) score tile stays bounded.
     if s > Q_CHUNK and s % Q_CHUNK == 0 and mask is not None:
-        ctx = torch.cat([attend(qg[:, i:i + Q_CHUNK], mask[..., i:i + Q_CHUNK, :])
+        ctx = torch.cat([attend_core(cfg, qg[:, i:i + Q_CHUNK], k64, v64,
+                                     mask[..., i:i + Q_CHUNK, :], x.dtype)
                          for i in range(0, s, Q_CHUNK)], dim=1)
     else:
-        ctx = attend(qg, mask)
+        ctx = attend_core(cfg, qg, k64, v64, mask, x.dtype)
     out = linear(p["wo"], ctx.reshape(x.shape[0], x.shape[1], h * dh))
     if return_kv:
         return out, (k, v)
     return out, new_cache
+
+
+def attend_core(cfg, qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                mask: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor:
+    """Scores, softcap, mask, softmax and the weighted sum of one query
+    block qg (B, Sq, Hk, G, Dh) against k, v (B, T, Hk, Dh), in float64;
+    the context (B, Sq, Hk, G, Dh) is rounded once to ``dtype`` (see
+    :func:`attention` for why)."""
+    dh = qg.shape[-1]
+    scores = torch.einsum("bshgd,bthd->bhgst", qg.to(torch.float64),
+                          k.to(torch.float64)) / math.sqrt(dh)
+    scores = softcap(scores, cfg.attn_softcap)
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhgst,bthd->bshgd", probs, v.to(torch.float64)).to(dtype)
 
 
 # ---------------------------------------------------------------------------

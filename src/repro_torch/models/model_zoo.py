@@ -10,8 +10,9 @@ The attention K/V leaves are a pool of fixed-size token blocks,
 logical positions onto pool blocks.  Block 0 is reserved scratch: table
 padding points at it, so gathers and scatters of unallocated entries touch
 garbage that the attention mask never reads.  Every other leaf (the SSM
-conv tail and SSD state) is O(1) per slot and stays dense with a slot axis,
-(L, slots, ...): the view passes it through and the scatter writes it back.
+conv tail and SSD state, the enc-dec cross K/V) is O(1) per slot and stays
+dense with a slot axis, (L, slots, ...): the view passes it through and the
+scatter writes it back.
 """
 from __future__ import annotations
 
@@ -19,33 +20,39 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 PAGED_LEAVES = ("k", "v")
 
 
+def _mod(cfg):
+    return encdec if cfg.family == "encdec" else transformer
+
+
 def init_params(cfg, generator: torch.Generator, device="cuda") -> dict:
-    return transformer.init_params(cfg, generator, device)
+    return _mod(cfg).init_params(cfg, generator, device)
 
 
 def forward(cfg, params, batch):
-    """Teacher-forced logits and aux; see ``transformer.forward``."""
-    return transformer.forward(cfg, params, batch)
+    """Teacher-forced logits and aux; see ``transformer.forward`` and
+    ``encdec.forward``."""
+    return _mod(cfg).forward(cfg, params, batch)
 
 
 def init_cache(cfg, batch_size: int, max_len: int, dtype=torch.float32, device="cuda"):
-    return transformer.init_cache(cfg, batch_size, max_len, dtype, device)
+    return _mod(cfg).init_cache(cfg, batch_size, max_len, dtype, device)
 
 
 def prefill(cfg, params, batch, cache):
-    """Whole-prompt prefill; see ``transformer.prefill``."""
-    return transformer.prefill(cfg, params, batch, cache)
+    """Whole-prompt prefill; see ``transformer.prefill`` and
+    ``encdec.prefill`` (whose batch carries ``frames``)."""
+    return _mod(cfg).prefill(cfg, params, batch, cache)
 
 
 def decode_step(cfg, params, tokens, cache, t):
     """One synchronous decode step at length ``t``; see
     ``transformer.decode_step``."""
-    return transformer.decode_step(cfg, params, tokens, cache, t)
+    return _mod(cfg).decode_step(cfg, params, tokens, cache, t)
 
 
 def chunk_step(cfg, params, tokens, pos, cache, lengths):
@@ -54,12 +61,12 @@ def chunk_step(cfg, params, tokens, pos, cache, lengths):
     slot's first chunk may start at a nonzero ``lengths[i]`` against a
     pre-populated block table (prefix-cache fork).  See
     ``transformer.chunk_step``."""
-    return transformer.chunk_step(cfg, params, tokens, pos, cache, lengths)
+    return _mod(cfg).chunk_step(cfg, params, tokens, pos, cache, lengths)
 
 
 def flat_step(cfg, params, tokens, slot, pos, cache, emit_row):
     """Flat token-packed step; see ``transformer.flat_step``."""
-    return transformer.flat_step(cfg, params, tokens, slot, pos, cache, emit_row)
+    return _mod(cfg).flat_step(cfg, params, tokens, slot, pos, cache, emit_row)
 
 
 def init_paged_cache(cfg, slots: int, num_blocks: int, block_size: int,
@@ -68,7 +75,7 @@ def init_paged_cache(cfg, slots: int, num_blocks: int, block_size: int,
     (L, num_blocks, block_size, Hkv, Dh) and dense per-slot state."""
     dev = resolve_device(device)
     pools = {}
-    for name, shape in transformer.cache_shapes(cfg, slots, block_size).items():
+    for name, shape in _mod(cfg).cache_shapes(cfg, slots, block_size).items():
         if name in PAGED_LEAVES:
             shape = (shape[0], num_blocks) + tuple(shape[2:])
         pools[name] = torch.zeros(shape, dtype=dtype, device=dev)

@@ -1,4 +1,4 @@
-"""Decoder-only LM for the dense, MoE, SSM and hybrid families (port of
+"""Decoder-only LM for the dense, MoE, SSM, hybrid and VLM families (port of
 ``repro/models/transformer.py``).
 
 Per-layer parameters are stacked along a leading ``L`` axis, as in the
@@ -14,8 +14,13 @@ hymba) take each layer's ``is_global`` flag from the config.  Entry points:
 * ``flat_step``   -- one flat ragged token batch (``flat`` policy; refused for
   the SSM and hybrid families, as in the reference).
 
-The enc-dec and VLM families, ``loss_fn`` and rematerialization wait for
-later slices.
+The VLM family's vision tower is a stub, as in the reference: ``forward``
+and ``prefill`` take precomputed patch embeddings ``batch["patches"]``
+(B, frontend_seq, frontend_dim), project them with the dense fp
+``frontend_proj`` and put them before the token embeddings, so positions
+``0 .. frontend_seq - 1`` hold the patches.  The enc-dec family lives in
+``models/encdec.py`` (``model_zoo`` dispatches); ``loss_fn`` and
+rematerialization wait for the training slice.
 """
 from __future__ import annotations
 
@@ -28,15 +33,16 @@ from repro_torch.models import layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 
-_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 def _check_family(cfg, what: str) -> None:
-    """Raise for the families of later slices (enc-dec, VLM)."""
+    """Raise for a family this module does not build (enc-dec is
+    ``models/encdec.py``'s)."""
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"{what}: family {cfg.family!r} is not ported yet (ported: "
-            f"{', '.join(_FAMILIES)})")
+        raise ValueError(
+            f"{what}: family {cfg.family!r} is not a decoder-only family "
+            f"({', '.join(_FAMILIES)}); model_zoo dispatches it")
 
 
 # ---------------------------------------------------------------------------
@@ -77,8 +83,9 @@ def stack_layers(blocks: list):
 
 
 def init_head(cfg, generator: torch.Generator, device="cuda") -> dict:
-    """The params outside the layer stack: the embedding, the final norm
-    and, untied, the fp ``lm_head``."""
+    """The params outside the layer stack: the embedding, the final norm,
+    untied the fp ``lm_head`` and, with a vision frontend, the dense fp
+    ``frontend_proj`` (frontend_dim, d_model)."""
     dev = resolve_device(device)
     d = cfg.d_model
     params = {"embed": layers.normal(generator, (cfg.padded_vocab, d), 0.02, dev),
@@ -86,6 +93,10 @@ def init_head(cfg, generator: torch.Generator, device="cuda") -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = {
             "wd": layers.normal(generator, (d, cfg.padded_vocab), 1.0 / math.sqrt(d), dev)}
+    if cfg.frontend == "vision":
+        params["frontend_proj"] = {
+            "wd": layers.normal(generator, (cfg.frontend_dim, d),
+                                1.0 / math.sqrt(cfg.frontend_dim), dev)}
     return params
 
 
@@ -202,8 +213,22 @@ def _head(cfg, params: dict, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _embed(cfg, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return (params["embed"][tokens] * math.sqrt(cfg.d_model)).to(torch.float32)
+def _embed(cfg, params: dict, tokens: torch.Tensor,
+           patches: torch.Tensor | None = None) -> torch.Tensor:
+    """Token embeddings (B, S, D); with a vision frontend and ``patches``
+    (B, P, frontend_dim), their projection by the dense ``frontend_proj``
+    goes first: (B, P + S, D).  The projection is one ``torch.matmul`` (no
+    kernel) summed in float64 and rounded once to float32: on the GPU a
+    float32 matmul's order follows the call's shape and differs from the
+    CPU's, and patch rows one ulp apart can move an int8 activation code in
+    the first layer (the reason the attention core and rmsnorm sum in
+    float64, ``models/layers.py``)."""
+    x = params["embed"][tokens] * math.sqrt(cfg.d_model)
+    if cfg.frontend == "vision" and patches is not None:
+        wd = params["frontend_proj"]["wd"]
+        proj = (patches.to(torch.float64) @ wd.to(torch.float64)).to(torch.float32)
+        x = torch.cat([proj, x], dim=1)
+    return x.to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -213,9 +238,10 @@ def _embed(cfg, params: dict, tokens: torch.Tensor) -> torch.Tensor:
 def forward(cfg, params: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor | float]:
     """Teacher-forced logits (B, S, V) of ``batch["tokens"]`` (B, S), and the
     auxiliary loss summed over the layers (a float32 scalar tensor; 0.0
-    without MoE layers)."""
+    without MoE layers).  A VLM batch's ``patches`` add P leading
+    positions: (B, P + S, V)."""
     _check_family(cfg, "forward")
-    x = _embed(cfg, params, batch["tokens"])
+    x = _embed(cfg, params, batch["tokens"], batch.get("patches"))
     pos = torch.arange(x.shape[1], device=x.device)
     x, aux, _ = _layers(cfg, params, x, None, pos=pos, mode="fwd")
     return _head(cfg, params, x), aux
@@ -247,12 +273,12 @@ def init_cache(cfg, batch_size: int, max_len: int, dtype=torch.float32,
 
 
 def prefill(cfg, params: dict, batch: dict, cache: dict) -> tuple[torch.Tensor, dict]:
-    """Run the prompt ``batch["tokens"]`` (B, S): its K/V go into ``cache``
-    rows [0, S), the SSM conv tail and final state replace the SSM leaves.
-    Returns (last-position logits (B, 1, V), cache); the head runs on the
-    last row only."""
+    """Run the prompt ``batch["tokens"]`` (B, S), after a VLM batch's P
+    ``patches``: its K/V go into ``cache`` rows [0, P + S), the SSM conv
+    tail and final state replace the SSM leaves.  Returns (last-position
+    logits (B, 1, V), cache); the head runs on the last row only."""
     _check_family(cfg, "prefill")
-    x = _embed(cfg, params, batch["tokens"])
+    x = _embed(cfg, params, batch["tokens"], batch.get("patches"))
     pos = torch.arange(x.shape[1], device=x.device)
     x, _, new_cache = _layers(cfg, params, x, cache, pos=pos, mode="prefill")
     return _head(cfg, params, x[:, -1:, :]), new_cache

@@ -23,10 +23,12 @@ once at init (or supplied) picks each projection's kernel, and every model
 call runs inside it: planned ``tsar_sparse_padded`` on a layer with pools
 runs the hand-written sparse kernel, the rest the ``tsar_matmul`` kernel.
 
-The dense, MoE, SSM and hybrid families are served; the SSM and hybrid
-recurrences take the ``whole`` policy only, as in the reference.  Latent
-(``packed=False``) serving and the enc-dec and VLM families are later
-slices.
+Every family is served: dense and MoE under any policy; SSM, hybrid,
+enc-dec and VLM under ``whole`` only, as in the reference.  An enc-dec
+prefill encodes zero ``frames`` and a VLM prefill projects zero
+``patches``, the reference's stubs (a VLM slot's cache also holds the
+``frontend_seq`` patch positions before its prompt).  Latent
+(``packed=False``) serving is a later slice.
 """
 from __future__ import annotations
 
@@ -255,8 +257,6 @@ class ServingEngine:
                  prefix_cache: bool | int = False, tracer=None, device="cuda"):
         if not packed:
             raise _later_slice("latent (packed=False) serving", "training")
-        if cfg.family in ("encdec", "vlm"):
-            raise _later_slice(f"family {cfg.family!r}", "enc-dec and VLM")
         if policy is None:
             policy = "flat" if cfg.family in _CHUNKABLE_FAMILIES else "whole"
         elif policy not in _POLICIES:
@@ -285,6 +285,8 @@ class ServingEngine:
                 f"({batch_slots + 1}): every decode slot needs a row plus "
                 "at least one prefill token")
         self.token_budget = token_budget
+        # Cache positions a VLM slot holds before its prompt (the patches).
+        self._extra = cfg.frontend_seq if cfg.family == "vlm" else 0
 
         self.kv = PagedKVCache(cfg, batch_slots, max_len, block_size=block_size,
                                num_blocks=kv_blocks, dtype=cache_dtype,
@@ -435,6 +437,7 @@ class ServingEngine:
     def _admit(self):
         rej0 = self.sched.rejections
         admitted = self.sched.admit(self._slots, self._queue, self.kv,
+                                    extra_positions=self._extra,
                                     reserve_full=self.policy == "whole",
                                     prefix_cache=self.prefix)
         if self.sched.rejections > rej0:
@@ -483,8 +486,17 @@ class ServingEngine:
             torch.cuda.synchronize(self.device)
 
     def _prefill_slot(self, i: int, st: SlotState):
-        """Whole-prompt prefill of one slot through the paged cache."""
+        """Whole-prompt prefill of one slot through the paged cache.  The
+        enc-dec and VLM frontends are the reference's stubs: zero frame or
+        patch embeddings."""
+        cfg = self.cfg
         batch = {"tokens": self._to_device(st.prompt)[None, :]}
+        if cfg.family == "vlm":
+            batch["patches"] = torch.zeros((1, cfg.frontend_seq, cfg.frontend_dim),
+                                           dtype=torch.float32, device=self.device)
+        if cfg.family == "encdec":
+            batch["frames"] = torch.zeros((1, cfg.enc_seq, cfg.d_model),
+                                          dtype=torch.float32, device=self.device)
         t0 = time.perf_counter()
         sel, self.kv.pools = self._planned(_whole_prefill_call, self.cfg, self.params,
                                            self.kv.pools, *self._tables(self.kv.max_blocks),
@@ -714,8 +726,9 @@ class ServingEngine:
         if self.busy:
             raise RuntimeError("warmup() requires an idle engine")
         total = seq_len or (self.prefill_chunk + 3)
-        # Room for the generated tokens and the headroom position.
-        plen = max(2, min(total - 2, self.max_len - 3))
+        # Room for the generated tokens, the headroom position and a VLM's
+        # patch positions.
+        plen = max(2, min(total - 2, self.max_len - self._extra - 3))
         rng = np.random.default_rng(0x7e57)
         prompt = rng.integers(0, self.cfg.vocab_size, size=plen, dtype=np.int32)
         self.run([Request(uid=-1, prompt=prompt, max_new_tokens=2)])

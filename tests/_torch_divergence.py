@@ -11,7 +11,11 @@ Prints, for the reduced configs on the reference's frozen planes:
 2. ``hymba-1.5b``'s layer 0 on that prompt: each sub-op of the block on the
    same input in both packages (rmsnorm, attention, the SSM branch) and the
    whole block;
-3. per family, ``forward`` over 64 x 32 numpy-seeded tokens: positions
+3. the same block run whole in each package, every per-token int8
+   activation quantization recorded in call order: how far each input
+   differs and which codes moved (the first moved code is the one the
+   near-tie rule of ``_torch_serving.assert_same_run`` is about);
+4. per family, ``forward`` over 64 x 32 numpy-seeded tokens: positions
    whose logit row moved by more than 1e-4 and argmax flips.
 """
 import sys
@@ -25,6 +29,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from _torch_serving import port_params, reference_frozen, requests  # noqa: E402
 
+import repro.core.ternary as jternary  # noqa: E402
+import repro_torch.core.ternary as ternary  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro.models import model_zoo as jzoo  # noqa: E402
 from repro.models import ssm as jssm  # noqa: E402
@@ -74,6 +80,46 @@ def hybrid_prompt() -> None:
           + ", ".join(f"{k} {v:.3g}" for k, v in same.items()))
 
 
+def moved_codes() -> None:
+    cfg, frozen = reference_frozen("hymba-1.5b")
+    params = port_params("hymba-1.5b")
+    toks = requests(Request, [3, 8, 16, 32, 5], 5, 7)[3].prompt[None].astype(np.int32)
+    x = np.asarray(jt._embed_inputs(cfg, frozen, {"tokens": jnp.asarray(toks)}, False))
+    pos = np.arange(x.shape[1])
+    seen = {"reference": [], "port": []}
+    inner = {"reference": jternary.quantize_activations, "port": ternary.quantize_activations}
+
+    def recording(side):
+        def quantize(a, eps=1e-6):
+            q, s = inner[side](a, eps)
+            seen[side].append(tuple(np.asarray(v).reshape(-1, np.shape(v)[-1])
+                                    for v in (a, q, s)))
+            return q, s
+        return quantize
+
+    jternary.quantize_activations = recording("reference")
+    ternary.quantize_activations = recording("port")
+    try:
+        jt._block(cfg, jax.tree.map(lambda v: v[0], frozen["blocks"]), jnp.asarray(x),
+                  flag=False, pos=jnp.asarray(pos), train=False, mode="fwd")
+        transformer._block(cfg, transformer.layer_slice(params["blocks"], 0),
+                           torch.from_numpy(x), flag=False, pos=torch.from_numpy(pos),
+                           mode="fwd")
+    finally:
+        jternary.quantize_activations = inner["reference"]
+        ternary.quantize_activations = inner["port"]
+    print("hymba layer 0 run whole, each activation quantization in call order:")
+    for i, ((aj, qj, sj), (at, qt, st)) in enumerate(zip(seen["reference"], seen["port"])):
+        moved = np.argwhere(qj != qt)
+        line = (f"  call {i} K={aj.shape[-1]}: inputs differ by {_diff(aj, at):.3g}, "
+                f"{len(moved)} codes moved")
+        if len(moved):
+            r, c = moved[0]
+            line += (f"; first at row {r}: a/scale {aj[r, c] / sj[r, 0]:.8g} (reference) "
+                     f"against {at[r, c] / st[r, 0]:.8g} (port)")
+        print(line)
+
+
 def family_rates() -> None:
     for arch in ("bitnet-2b-4t", "gemma2-2b", "deepseek-moe-16b", "mamba2-780m", "hymba-1.5b"):
         cfg, frozen = reference_frozen(arch)
@@ -90,4 +136,5 @@ def family_rates() -> None:
 
 if __name__ == "__main__":
     hybrid_prompt()
+    moved_codes()
     family_rates()

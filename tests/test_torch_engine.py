@@ -22,7 +22,6 @@ import pytest
 import torch
 from _torch_serving import assert_same_run, reference_latent, requests, run_pair
 
-import repro.configs as jconfigs
 from repro.serving import ServingEngine as JServingEngine
 from repro_torch import bridge
 from repro_torch.plan import ModelPlan, registry, runtime
@@ -102,17 +101,11 @@ def test_cuda_device_raises_without_gpu(ref_latent):
         ServingEngine(cfg, {}, device="cuda")
 
 
-@pytest.mark.parametrize("case", ["packed=False", "family=encdec", "family=vlm"])
+@pytest.mark.parametrize("case", ["packed=False"])
 def test_unported_options_raise(case, ref_latent):
     cfg, _ = ref_latent
-    kw = {}
-    if case == "packed=False":
-        kw["packed"] = False
-    else:
-        arch = {"family=encdec": "whisper-tiny", "family=vlm": "llava-next-mistral-7b"}[case]
-        cfg = jconfigs.get(arch).reduced()
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        ServingEngine(cfg, {}, device="cpu", **kw)
+        ServingEngine(cfg, {}, device="cpu", packed=False)
 
 
 def test_unknown_policy_raises(ref_latent):

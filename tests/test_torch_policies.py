@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_serving import (assert_same_run, port_params, reference_frozen, reference_latent,
+from _torch_serving import (assert_same_run, port_params, reference_dense, reference_frozen,
                             requests, run_pair)
 
 from repro.models import layers as jlayers
@@ -203,28 +203,11 @@ def test_prefill_then_decode_step():
         _close(p_cache[n], r_cache[n], n)
 
 
-def _dense(arch):
-    """(reduced config, the reference's latent weights as plain dense
-    ``{'wd'}`` projections, numpy leaves): no int8 activation codes, so a
-    float32 rounding difference between the packages stays a rounding
-    difference."""
-    cfg, latent = reference_latent(arch)
-
-    def walk(node):
-        if isinstance(node, dict):
-            if set(node) == {"w"}:
-                return {"wd": np.asarray(node["w"])}
-            return {k: walk(v) for k, v in node.items()}
-        return np.asarray(node)
-
-    return cfg, walk(latent)
-
-
 def test_windowed_prefill_and_decode_match_reference():
     """Reduced ``gemma2-2b`` (local layer 0, window 32) on dense weights:
     ``prefill`` of 36 tokens into a 48-row cache, then ``decode_step``s at
     36..39, past the window, against the reference's; logits and caches."""
-    cfg, dense = _dense("gemma2-2b")
+    cfg, dense = reference_dense("gemma2-2b")
     params = bridge.params_from_reference(dense, device="cpu")
     toks = _tokens(np.random.default_rng(5), 2, 40)
     want, r_cache = jzoo.prefill(cfg, dense, {"tokens": jnp.asarray(toks[:, :36])},
