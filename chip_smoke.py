@@ -101,12 +101,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
    bf16 decode and no kernel); layer 0's ``moe_forward`` on the card against
    the CPU (routing equal away from near ties within 1e-6, ``y`` within
    rtol/atol 1e-2); CUDA-event times of the expert decode and of one layer;
-   the bf16 expert products, the router logits and the combine of the same
-   rows in two call shapes compared; runs of the first 4 requests x 8
-   tokens under the three policies at capacity 8.0 and at E / k (no drops),
-   each pair's first divergence and the dropped picks printed, not gated; a
-   reduced-config ``flat_step`` on the card against the CPU within 2^-8 (the
-   bf16 roundoff of the expert outputs);
+   the bf16 expert products, the router logits (float64 sums, and one
+   float32 product beside them) and the combine of the same rows in two
+   call shapes compared; runs of the first 4 requests x 8 tokens under the
+   three policies at capacity 8.0 and at E / k, each pair's first
+   divergence and the dropped picks printed; at E / k (no call can drop a
+   pick) the three policies' greedy tokens must be equal; a reduced-config
+   ``flat_step`` on the card against the CPU within 2^-8 (the bf16 roundoff
+   of the expert outputs);
 14. SSM phase: full-width ``mamba2-780m`` (48 layers) under ``whole``, twice
    on the 8 requests: equal greedy tokens, ``tsar_matmul`` launches 96 per
    decode step + 144 per whole prefill (``in_proj`` once more on the conv
@@ -128,7 +130,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
    224 launches per whole prefill and per decode step (``frontend_proj`` is
    a plain fp matmul and launches none), peak device memory printed; a
    reduced config's prefill over numpy-seeded random patches + 4 decode
-   steps on the card against the CPU within 1e-4.
+   steps on the card against the CPU within 1e-4;
+18. training phase: full-width ``bitnet-2b-4t`` (2.74 B latent params, two
+   float32 AdamW moments) from ``train.init_state`` on the card, 3 steps of
+   ``make_train_step(remat=True, accum_steps=2)`` on the synthetic stream
+   (2 sequences of 1024 tokens per step): loss and gradient norm finite,
+   every leaf moved, no T-SAR kernel launched; loss, step time, tokens/s
+   and peak device memory printed.  The moments are dropped and the
+   trained params frozen: the first 4 requests x 8 tokens through
+   ``ServingEngine(packed=True)`` (``tsar_matmul`` launches as the plan
+   predicts) and through ``ServingEngine(packed=False)`` on the trained
+   latent params (no launch) give equal greedy tokens (the largest logit
+   gap printed).  Then, on the reduced config with deterministic
+   algorithms, 8 steps with a checkpoint every 2 and a simulated failure at
+   step 5 under ``run_with_restarts`` end ``torch.equal`` (params and
+   moments) to an uninterrupted run; and one train step of every family's
+   reduced config on the card matches the CPU's loss within 1e-4 relative
+   (same params, drawn on the CPU).
 
 Phase 7 also holds ``tsar_matmul`` at the enc-dec and VLM projections'
 (K, M) x N in {4, 20, 1500, 3008} (the encoder's 1500 frame rows, llava's
@@ -140,7 +158,7 @@ Each engine run and each bitlinear run is a path: every launch count is set
 to 0 just before it and read just after.  Greedy tokens of two runs are
 compared strictly; on a difference the script prints the first diverging
 request and token with both runs' top-2 logits and margins there, then
-fails (the MoE cross-policy comparisons only print).  The card's name and power limit
+fails (the MoE cross-policy comparisons at capacity 8.0 only print).  The card's name and power limit
 are printed again before the ``{"kernels": [...]}`` line, which comes
 before the last; the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
 or of the JAX package ``repro``.
@@ -151,6 +169,7 @@ import argparse
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -190,6 +209,9 @@ REPLAYS = 21
 MATMUL_NS = (4, 20, 64, 77, 128)
 SPARSE_NS = (4, 20, 64, 128)
 POLICIES = ("flat", "chunked", "whole")
+# The training phase: optimizer steps, tokens per sequence, sequences per
+# step, microbatches per step.
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = 3, 1024, 2, 2
 
 
 def _require(cond: bool, what: str) -> None:
@@ -953,6 +975,8 @@ def predicted_launches(engine, widths: list, whole_prefills: int = 0) -> dict:
     from repro_torch.plan import registry
 
     want = dict.fromkeys(COUNTERS, 0)
+    if engine.plan is None:              # latent serving (packed=False): no kernel
+        return want
     cfg = engine.cfg
     tail = [cfg.ssm_conv_width - 1] * whole_prefills
     enc_rows = [cfg.enc_seq] * whole_prefills
@@ -1616,9 +1640,10 @@ def moe_phase(torch, cfg) -> dict:
     # Do the MoE's products round the same rows alike in the call shapes the
     # policies give them?  Rows alone against inside a larger call: the
     # bf16 expert products (3 slots of 1 batch row, inside 15 slots and
-    # inside 4 batch rows), the float32 router logits (4 rows, inside 20, 64
-    # and 128) and the bf16 combine (3 slots, inside 15, the rest zero; its
-    # expert outputs from the 1-row calls).
+    # inside 4 batch rows), the router logits (4 rows, inside 20, 64 and 128;
+    # as the router computes them, float64 sums rounded once, and as one
+    # float32 product, the spelling before) and the bf16 combine (3 slots,
+    # inside 15, the rest zero; its expert outputs from the 1-row calls).
     def differ(a, b) -> str:
         return f"{int((a != b).sum())} of {a.numel()}"
 
@@ -1629,16 +1654,20 @@ def moe_phase(torch, cfg) -> dict:
     one_row = moe._expert_ffn(p0, xe[:1])
     wide = one_row[:, :, :3]
     x128 = torch.randn((1, 128, cfg.d_model), generator=gen, device="cuda")
-    r4 = layers.linear(p0["router"], x128[:, :4].contiguous())
+    r4 = moe._router_logits(p0["router"], x128[:, :4].contiguous())
+    f4 = layers.linear(p0["router"], x128[:, :4].contiguous())
     comb = torch.rand((1, 4, cfg.n_experts, 15), generator=gen, device="cuda").to(torch.bfloat16)
     comb[..., 3:] = 0
     c_wide = moe._bf16_einsum("bsec,becd->bsd", comb, one_row)
     c_narrow = moe._bf16_einsum("bsec,becd->bsd", comb[..., :3].contiguous(), narrow)
     print("moe: the same rows in two call shapes, elements that differ: bf16 expert "
           f"outputs 3 slots vs 15 {differ(narrow, wide)}, 1 batch row vs 4 "
-          f"{differ(narrow, full[:1, :, :3])}; float32 router logits 4 rows vs "
-          + ", ".join(f"{t} {differ(r4, layers.linear(p0['router'], x128[:, :t])[:, :4])}"
+          f"{differ(narrow, full[:1, :, :3])}; router logits 4 rows vs "
+          + ", ".join(f"{t} {differ(r4, moe._router_logits(p0['router'], x128[:, :t])[:, :4])}"
                       for t in (20, 64, 128))
+          + " (as one float32 product: "
+          + ", ".join(f"{t} {differ(f4, layers.linear(p0['router'], x128[:, :t])[:, :4])}"
+                      for t in (20, 64, 128)) + ")"
           + f"; bf16 combine 3 slots vs 15 {differ(c_narrow, c_wide)}", flush=True)
     flat = runs["flat"]
     print(f"moe: expert decode (3 stacks, 553.6 M weights -> bf16) {dec_ms:.3f} ms per layer, "
@@ -1651,7 +1680,10 @@ def moe_phase(torch, cfg) -> dict:
     # capacity 8.0 (dropless at the reduced widths: C = 4 S there) and at
     # E / k (C >= S: no call can drop at any width; 8.0 gives C = 0.75 S
     # here); the first divergence of each pair and the (token, expert)
-    # picks dropped are printed, not gated.
+    # picks dropped are printed.  At E / k the greedy tokens must be equal
+    # across the policies (the router and expert sums are float64, rounded
+    # once: the same bits in every call layout); at 8.0 a policy's calls
+    # can drop other picks, so there they are printed, not gated.
     route = moe._route
     dropped = {"n": 0}
 
@@ -1675,12 +1707,19 @@ def moe_phase(torch, cfg) -> dict:
                 dropped["n"] = 0
                 drop[pol] = run_path(torch, engine, reqs, f"moe capacity {cf:.4g} {pol}")
                 drops[pol] = dropped["n"]
+            gated = cf == cfg.n_experts / cfg.moe_top_k
             same[cf] = {f"{a} vs {b}": divergence(
-                torch, drop[a], drop[b], f"moe capacity {cf:.4g} {a} vs {b} (not gated)") is None
+                torch, drop[a], drop[b],
+                f"moe capacity {cf:.4g} {a} vs {b}{'' if gated else ' (not gated)'}") is None
                 for a, b in (("flat", "chunked"), ("flat", "whole"), ("chunked", "whole"))}
             print(f"moe capacity {cf:.4g}: cross-policy greedy tokens equal {same[cf]}; "
                   f"(token, expert) picks dropped, padding rows included: {drops}",
                   flush=True)
+            if gated:
+                _require(not any(drops.values()), f"moe capacity {cf:.4g} dropped picks")
+                _require(all(same[cf].values()),
+                         f"moe capacity {cf:.4g} (dropless): greedy tokens differ across "
+                         "the policies")
     finally:
         moe._route = route
     # The expert outputs are rounded to bf16 (relative roundoff 2^-8); the
@@ -1785,10 +1824,212 @@ def large_kernel_phase(torch, cfgs: dict) -> dict:
     return {"rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows.values())}
 
 
+def _flat_leaves(tree, path: str = "") -> dict:
+    """path -> tensor of a nested dict of tensors."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _flat_leaves(sub, f"{path}/{key}" if path else key).items()}
+    return {path: tree}
+
+
+def train_phase(torch, cfg) -> dict:
+    """Full-width training, then serving the trained weights: ``init_state``
+    on the card (generator seed 0), ``TRAIN_STEPS`` steps of
+    ``make_train_step(remat=True, accum_steps=TRAIN_ACCUM)`` on the
+    synthetic stream (sequence ``TRAIN_SEQ``, batch ``TRAIN_BATCH``): the
+    loss and gradient norm finite, every leaf moved, no T-SAR kernel
+    launched; then the optimizer state is dropped, the params frozen, and 4
+    requests x 8 tokens served by ``ServingEngine(packed=True)``
+    (``tsar_matmul`` launches as the plan predicts) and by
+    ``ServingEngine(packed=False)`` on the trained latent params (no
+    launch): equal greedy tokens."""
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.optim import OptConfig
+    from repro_torch.serving import Request, freeze_params
+    from repro_torch.train import init_state, make_train_step
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt_cfg = OptConfig(warmup_steps=2, total_steps=TRAIN_STEPS)
+    t0 = time.perf_counter()
+    state = init_state(cfg, torch.Generator(device=dev).manual_seed(0), opt_cfg, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    leaves = _flat_leaves(state.params)
+    n_params = sum(v.numel() for v in leaves.values())
+    start = {k: v.to("cpu", copy=True) for k, v in leaves.items()}
+    print(f"train: {cfg.name} init_state {t_init:.2f} s, {n_params / 1e9:.3f} B latent "
+          f"params in {len(leaves)} leaves, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          "resident (params + two float32 moments)", flush=True)
+    stream = SyntheticLMStream(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH))
+    step = make_train_step(cfg, opt_cfg, remat=True, accum_steps=TRAIN_ACCUM)
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    steps = []
+    zero_launch_counts()
+    for i in range(TRAIN_STEPS):
+        batch = stream.batch(i, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        steps.append({"loss": loss, "grad_norm": gnorm, "s": dt})
+        _require(math.isfinite(loss) and math.isfinite(gnorm),
+                 f"train step {i}: loss {loss}, grad_norm {gnorm}")
+        print(f"train step {i}: loss {loss:.4f}, grad_norm {gnorm:.4f}, lr "
+              f"{float(m['lr']):.3g}, {dt:.3f} s, {tokens / dt:.0f} tokens/s, peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    _require(launch_counts() == dict.fromkeys(COUNTERS, 0),
+             f"training launched T-SAR kernels: {launch_counts()}")
+    still = [k for k, v in leaves.items() if torch.equal(start[k].to(dev), v)]
+    _require(not still, f"train: leaves that did not move: {still[:5]}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    params = state.params
+    del state, m, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    frozen = freeze_params(params)
+    torch.cuda.synchronize()
+    t_freeze = time.perf_counter() - t0
+
+    def reqs():
+        out = make_requests(Request, cfg)[:4]
+        for r in out:
+            r.max_new_tokens = 8
+        return out
+
+    packed = run_path(torch, dense_engine(torch, cfg, frozen), reqs(), "trained packed")
+    _require(packed["launches"]["tsar_matmul"] > 0, "the trained packed run launched nothing")
+    latent = run_path(torch, dense_engine(torch, cfg, params, packed=False), reqs(),
+                      "trained latent")
+    same_tokens(torch, packed, latent, "trained weights: packed vs latent engine")
+    gap = max((packed["rows"][key] - latent["rows"][key]).abs().max().item()
+              for key in packed["rows"])
+    times = [r["s"] for r in steps]
+    losses = " -> ".join(f"{r['loss']:.4f}" for r in steps)
+    print(f"train: {TRAIN_STEPS} steps of {tokens} tokens (remat, {TRAIN_ACCUM} microbatches): "
+          f"loss {losses}, step {', '.join(f'{t:.3f}' for t in times)} s, "
+          f"{tokens / statistics.median(times):.0f} "
+          f"tokens/s at the median step, peak device memory {peak:.2f} GiB, every leaf moved "
+          f"| freeze {t_freeze:.2f} s | packed and latent engines: equal greedy tokens, "
+          f"largest logit gap {gap:.3g}, tsar_matmul launches {packed['launches']['tsar_matmul']}"
+          f" / {latent['launches']['tsar_matmul']} | {gpu_line()}", flush=True)
+    del frozen, params
+    return {"steps": steps, "peak_gib": peak, "packed": packed, "latent": latent, "gap": gap}
+
+
+def restart_phase(torch, cfg_full) -> None:
+    """The reduced config on the card: 8 steps with a checkpoint every 2
+    and a simulated failure at step 5 under ``run_with_restarts`` end with
+    the state (params, moments, count) ``torch.equal`` to an uninterrupted
+    8-step run; deterministic algorithms on for the phase."""
+    import shutil
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.optim import OptConfig
+    from repro_torch.runtime import run_with_restarts
+    from repro_torch.train import init_state, make_train_step
+
+    cfg = cfg_full.reduced()
+    dev = torch.device("cuda")
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+    stream = SyntheticLMStream(DataConfig(cfg.vocab_size, 64, 8, seed=5))
+    step = make_train_step(cfg, opt_cfg)
+    ckdir = str(ROOT / "build" / "chip_smoke_restart")
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+    def fresh():
+        return init_state(cfg, torch.Generator(device=dev).manual_seed(0), opt_cfg, device=dev)
+
+    crashes = {"armed": 1}
+
+    def restore_fn():
+        latest = ckpt.latest_step(ckdir)
+        return (fresh(), 0) if latest is None else (ckpt.restore(ckdir, latest, fresh()), latest)
+
+    def body(state, start):
+        for i in range(start, 8):
+            if i == 5 and crashes["armed"]:
+                crashes["armed"] -= 1
+                raise RuntimeError("simulated node failure")
+            state, _ = step(state, stream.batch(i, device=dev))
+            if (i + 1) % 2 == 0:
+                ckpt.save(ckdir, i + 1, state)
+        return 8
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        straight = fresh()
+        for i in range(8):
+            straight, _ = step(straight, stream.batch(i, device=dev))
+        report = run_with_restarts(body, restore_fn=restore_fn, max_restarts=2)
+        _require(report.completed and report.restarts == 1, f"restart: {report}")
+        resumed = ckpt.restore(ckdir, 8, fresh())
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckdir, ignore_errors=True)
+    want = {**_flat_leaves(straight.params), **_flat_leaves({"mu": straight.opt.mu}),
+            **_flat_leaves({"nu": straight.opt.nu})}
+    got = {**_flat_leaves(resumed.params), **_flat_leaves({"mu": resumed.opt.mu}),
+           **_flat_leaves({"nu": resumed.opt.nu})}
+    differ = [k for k in want if not torch.equal(want[k], got[k])]
+    _require(not differ and int(resumed.opt.count) == 8,
+             f"restart: the resumed state differs from the uninterrupted run in {differ[:5]}")
+    print(f"restart: reduced {cfg.name}, 8 steps, checkpoint every 2, failure at step 5: "
+          f"{report.restarts} restart, resumed from step 4; params and moments "
+          f"({len(want)} leaves) torch.equal to the uninterrupted run", flush=True)
+
+
+def train_agreement(torch, cfgs: list, tol: float = 1e-4) -> None:
+    """One train step of each family's reduced config on the card and on
+    the CPU from the same params (drawn on the CPU, generator seed 0) and
+    the same numpy-seeded batch: the losses within ``tol`` relative."""
+    import numpy as np
+
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.models import model_zoo
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.train import TrainState, make_train_step
+
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=2, total_steps=4)
+    for cfg_full in cfgs:
+        cfg = cfg_full.reduced()
+        batch = SyntheticLMStream(DataConfig(cfg.vocab_size, 32, 2, seed=1)).batch_numpy(0)
+        rng = np.random.default_rng(0)
+        if cfg.family == "encdec":
+            batch["frames"] = rng.standard_normal((2, cfg.enc_seq, cfg.d_model), dtype=np.float32)
+        if cfg.family == "vlm":
+            batch["patches"] = rng.standard_normal((2, cfg.frontend_seq, cfg.frontend_dim),
+                                                   dtype=np.float32)
+        base = model_zoo.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        out = []
+        for dev in (torch.device("cuda"), torch.device("cpu")):
+            params = _to(torch, base, dev)
+            state = TrainState(params, adamw_init(params),
+                               torch.zeros((), dtype=torch.int32, device=dev))
+            tb = {k: torch.from_numpy(v.astype(np.int64) if v.dtype == np.int32 else v).to(dev)
+                  for k, v in batch.items()}
+            _, m = make_train_step(cfg, opt_cfg)(state, tb)
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+        (gpu_loss, gpu_norm), (cpu_loss, cpu_norm) = out
+        rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+        print(f"reduced {cfg.name} train step GPU vs CPU: loss {gpu_loss:.7f} vs "
+              f"{cpu_loss:.7f} (rel {rel:.3g}, tol {tol:.3g}), grad_norm {gpu_norm:.6f} vs "
+              f"{cpu_norm:.6f}", flush=True)
+        _require(math.isfinite(gpu_loss) and rel <= tol,
+                 f"reduced {cfg.name} train step on the GPU disagrees with the CPU")
+
+
 def _to(torch, tree, dev):
+    """A copy of a nested dict of tensors on ``dev``."""
     if isinstance(tree, dict):
         return {k: _to(torch, v, dev) for k, v in tree.items()}
-    return tree.to(dev)
+    return tree.to(dev, copy=True)
 
 
 def main() -> int:
@@ -1797,6 +2038,9 @@ def main() -> int:
                     help="also profile 4 decode steps with torch.profiler")
     args = ap.parse_args()
 
+    # cuBLAS reproducibility under torch.use_deterministic_algorithms (the
+    # restart phase); read when the first cuBLAS handle is made.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -1875,6 +2119,11 @@ def main() -> int:
     whole_phase(torch, vlm_cfg, per_step=per_layer * vlm_cfg.n_layers,
                 per_prefill=per_layer * vlm_cfg.n_layers,
                 max_len=vlm_cfg.frontend_seq + 128 + 64)
+    # 18. training: full-width bitnet trained, frozen and served both ways;
+    # a restart on the reduced config; one train step per family vs the CPU
+    train_phase(torch, cfg)
+    restart_phase(torch, cfg)
+    train_agreement(torch, [cfg, moe_cfg, ssm_cfg, hybrid_cfg, encdec_cfg, vlm_cfg])
 
     # Per kernel, the seven projections at N=4: times 30 layers for the two
     # kernels of the serving step (one decode step), one layer for the two of

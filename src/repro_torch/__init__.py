@@ -14,6 +14,10 @@ layer-level path (``core.bitlinear.freeze`` / ``apply_frozen``) reaches
 the other two: ``csrc/tsar_lut.cu`` (port of ``tsar_lut_gemv``) and the
 compacted entry point of ``csrc/tsar_sparse.cu`` (port of
 ``tsar_sparse_matmul_packed``).
+
+Training runs the reference's QAT recipe in plain PyTorch (``train/``,
+``optim/``, ``data/``, ``checkpoint/``, ``runtime/``, ``launch/train.py``);
+its trained weights are frozen and served through the same kernels.
 """
 from repro_torch.device import resolve_device
 

@@ -15,7 +15,8 @@ block pools; ``--plan-file`` loads an execution plan (the reference's JSON
 format) or saves the compiled one there, ``--save-plan`` also writes it,
 ``--print-plan`` prints the per-layer table, and ``--prefix-cache
 [CAPACITY_BLOCKS]`` turns on prefix-caching KV reuse (the value caps the
-cached blocks).
+cached blocks).  ``--no-packed`` serves the latent weights as they are
+(QAT serving: the exact int8 pipeline, no freeze, no plan, no kernel).
 """
 from __future__ import annotations
 
@@ -44,6 +45,8 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=None,
                     help="cache positions per slot (default 128, plus a VLM's patches)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--no-packed", action="store_true",
+                    help="serve the latent weights: no freeze, no plan, no kernel")
     ap.add_argument("--sparse", choices=sorted(_SPARSE), default="auto",
                     help="padded block-sparse pools: where blocks die (auto), "
                          "always (true) or never (false)")
@@ -61,6 +64,8 @@ def main(argv=None):
                     help="enable prefix-caching KV reuse; optional value "
                          "caps the cached-block footprint (LRU-evicted)")
     args = ap.parse_args(argv)
+    if args.no_packed and (args.plan_file or args.save_plan or args.print_plan):
+        ap.error("--no-packed serves without an execution plan")
 
     dev = resolve_device(args.device)
     cfg = configs.get(args.arch)
@@ -70,9 +75,10 @@ def main(argv=None):
     block = None
     if args.sparse_block:
         block = (args.sparse_block[0], args.sparse_block[-1])
-    # Freeze before the engine so the latent fp32 weights can be dropped.
-    params = freeze_params(zoo.init_params(cfg, gen, dev), sparse=_SPARSE[args.sparse],
-                           block_shape=block)
+    params = zoo.init_params(cfg, gen, dev)
+    if not args.no_packed:
+        # Freeze before the engine so the latent fp32 weights can be dropped.
+        params = freeze_params(params, sparse=_SPARSE[args.sparse], block_shape=block)
     plan = None
     if args.plan_file and os.path.exists(args.plan_file):
         plan = ModelPlan.load(args.plan_file)
@@ -80,16 +86,17 @@ def main(argv=None):
               f"buckets {list(plan.buckets)})")
     max_len = args.max_len or 128 + (cfg.frontend_seq if cfg.family == "vlm" else 0)
     engine = ServingEngine(cfg, params, max_len=max_len,
-                           batch_slots=args.slots, plan=plan,
+                           batch_slots=args.slots, plan=plan, packed=not args.no_packed,
                            prefix_cache=args.prefix_cache, device=dev)
     if plan is None and args.plan_file:
         engine.plan.save(args.plan_file)
         print(f"plan: compiled and saved to {args.plan_file}")
     if args.save_plan:
         engine.plan.save(args.save_plan)
-    s = engine.plan.summary()
-    print(f"plan: {s['layers']} layers | decode -> {s['decode_kernel']} | "
-          f"prefill -> {s['prefill_kernel']}")
+    if engine.plan is not None:
+        s = engine.plan.summary()
+        print(f"plan: {s['layers']} layers | decode -> {s['decode_kernel']} | "
+              f"prefill -> {s['prefill_kernel']}")
     if args.print_plan:
         print(format_plan(engine.plan))
     rng = np.random.default_rng(0)
@@ -103,7 +110,8 @@ def main(argv=None):
     t, p = pct["ttft_s"], pct["tpot_s"]
     print(f"prefill {engine.stats['prefill_s']:.2f}s | "
           f"decode {engine.stats['decode_s']:.2f}s | "
-          f"{engine.throughput():.1f} tok/s steady-state (packed 2-bit, {dev})")
+          f"{engine.throughput():.1f} tok/s steady-state "
+          f"({'latent' if args.no_packed else 'packed 2-bit'}, {dev})")
     print(f"TTFT p50/p99 {t['p50'] * 1e3:.0f}/{t['p99'] * 1e3:.0f}ms | "
           f"TPOT p50/p99 {p['p50'] * 1e3:.2f}/{p['p99'] * 1e3:.2f}ms | "
           f"steps {engine.stats['steps']}")

@@ -9,7 +9,9 @@ MLP.  The decode caches are the self-attention K/V (``k``/``v``, one row per
 position) and the cross-attention K/V (``xk``/``xv``, enc_seq rows), which
 the prefill computes once from the encoder output and every decode step
 reuses unchanged.  The reference's ``lax.scan`` over the stacked layers is a
-Python loop; ``loss_fn`` belongs to the training slice.
+Python loop.  ``forward`` and ``loss_fn`` take the reference's ``train`` and
+``remat`` (the decoder layers recomputed in the backward), the serving entry
+points ``train=False`` (see ``models/transformer.py``).
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers
-from repro_torch.models.transformer import layer_slice, stack_layers
+from repro_torch.models.transformer import (layer_slice, run_layers, stack_layers,
+                                            token_nll, unstack_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -49,9 +52,6 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> dict:
     decoder layer drawn on its own, then stacked along a leading ``L``
     axis; the tied embedding and the two final norms.  ``generator`` must
     live on ``device``; the random numbers differ from the reference's."""
-    if not cfg.ternary:
-        raise NotImplementedError(
-            f"init_params: only ternary configs are ported (got {cfg.name!r})")
     dev = resolve_device(device)
     enc = [init_enc_block(cfg, generator, dev) for _ in range(cfg.n_enc_layers)]
     dec = [init_dec_block(cfg, generator, dev) for _ in range(cfg.n_layers)]
@@ -65,23 +65,23 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> dict:
 # Encoder, decoder layer, head
 # ---------------------------------------------------------------------------
 
-def encode(cfg, params: dict, frames: torch.Tensor) -> torch.Tensor:
+def encode(cfg, params: dict, frames: torch.Tensor, train: bool = True) -> torch.Tensor:
     """frames (B, T, D) stub embeddings -> encoder states (B, T, D)."""
     x = frames.to(torch.float32)
     pos = torch.arange(x.shape[1], device=x.device)
-    for i in range(cfg.n_enc_layers):
-        p = layer_slice(params["enc_blocks"], i)
+    for p in unstack_layers(params["enc_blocks"], cfg.n_enc_layers):
         h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
-        a, _ = layers.attention(cfg, p["attn"], h, pos=pos, is_global=True, causal=False)
+        a, _ = layers.attention(cfg, p["attn"], h, pos=pos, is_global=True, causal=False,
+                                train=train)
         x = x + a
         h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
-        x = x + layers.mlp(p["mlp"], h)
+        x = x + layers.mlp(p["mlp"], h, train)
     return layers.rmsnorm(params["ln_enc"], x, cfg.norm_eps)
 
 
 def _dec_block(cfg, p: dict, x: torch.Tensor, enc_out: torch.Tensor | None, *,
-               pos: torch.Tensor, mode: str, cache: dict | None = None,
-               cache_len=None) -> tuple[torch.Tensor, dict | None]:
+               pos: torch.Tensor, mode: str, train: bool = False,
+               cache: dict | None = None, cache_len=None) -> tuple[torch.Tensor, dict | None]:
     """One decoder layer.  ``mode``: ``"fwd"`` (no cache), ``"prefill"``
     (the prompt's K/V written to ``cache`` from row 0 and the cross K/V
     computed from ``enc_out``) or ``"decode"`` (self-attention against the
@@ -92,36 +92,37 @@ def _dec_block(cfg, p: dict, x: torch.Tensor, enc_out: torch.Tensor | None, *,
     if mode == "decode":
         a, ac = layers.attention(cfg, p["attn"], h, pos=pos, is_global=True,
                                  cache={"k": cache["k"], "v": cache["v"]},
-                                 cache_len=cache_len)
+                                 cache_len=cache_len, train=train)
         new_cache.update(ac)
     elif mode == "prefill":
         a, (k, v) = layers.attention(cfg, p["attn"], h, pos=pos, is_global=True,
-                                     return_kv=True)
+                                     train=train, return_kv=True)
         zero = torch.zeros((x.shape[0],), dtype=torch.long)
         new_cache.update({"k": layers.write_rows(cache["k"], k, zero),
                           "v": layers.write_rows(cache["v"], v, zero)})
     else:
-        a, _ = layers.attention(cfg, p["attn"], h, pos=pos, is_global=True)
+        a, _ = layers.attention(cfg, p["attn"], h, pos=pos, is_global=True, train=train)
     x = x + a
 
     h = layers.rmsnorm(p["ln_x"], x, cfg.norm_eps)
     if mode == "decode":
-        xa = _cross_from_cache(cfg, p["xattn"], h, cache["xk"], cache["xv"])
+        xa = _cross_from_cache(cfg, p["xattn"], h, cache["xk"], cache["xv"], train)
         new_cache.update({"xk": cache["xk"], "xv": cache["xv"]})
     else:
         xa, (xk, xv) = layers.attention(cfg, p["xattn"], h, pos=pos, is_global=True,
-                                        kv_x=enc_out, causal=False, return_kv=True)
+                                        kv_x=enc_out, causal=False, train=train,
+                                        return_kv=True)
         if mode == "prefill":
             new_cache.update({"xk": xk.to(cache["xk"].dtype),
                               "xv": xv.to(cache["xv"].dtype)})
     x = x + xa
 
     h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + layers.mlp(p["mlp"], h), (new_cache or None)
+    return x + layers.mlp(p["mlp"], h, train), (new_cache or None)
 
 
 def _cross_from_cache(cfg, p: dict, x: torch.Tensor, xk: torch.Tensor,
-                      xv: torch.Tensor) -> torch.Tensor:
+                      xv: torch.Tensor, train: bool = False) -> torch.Tensor:
     """Cross-attention of x (B, S, D) against the cached encoder K/V
     (B, T, Hk, Dh).  The scores, softmax and weighted sum are the attention
     core's (``layers.attend_core``: float64, rounded once), so a decode
@@ -129,9 +130,9 @@ def _cross_from_cache(cfg, p: dict, x: torch.Tensor, xk: torch.Tensor,
     does."""
     h_, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b, s, _ = x.shape
-    q = layers.linear(p["wq"], x).reshape(b, s, hk, h_ // hk, dh)
+    q = layers.linear(p["wq"], x, train).reshape(b, s, hk, h_ // hk, dh)
     ctx = layers.attend_core(cfg, q, xk, xv, None, x.dtype)
-    return layers.linear(p["wo"], ctx.reshape(b, s, h_ * dh))
+    return layers.linear(p["wo"], ctx.reshape(b, s, h_ * dh), train)
 
 
 def _head(cfg, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -167,14 +168,30 @@ def _decoder(cfg, params: dict, x: torch.Tensor, enc_out: torch.Tensor | None,
 # Entry points
 # ---------------------------------------------------------------------------
 
-def forward(cfg, params: dict, batch: dict) -> tuple[torch.Tensor, float]:
+def forward(cfg, params: dict, batch: dict, train: bool = True,
+            remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced logits (B, S, V) of ``batch["tokens"]`` given
-    ``batch["frames"]``, and the aux loss (0.0, as in the reference)."""
-    enc_out = encode(cfg, params, batch["frames"])
+    ``batch["frames"]``, and the aux loss (0, as in the reference).
+    ``remat`` recomputes each decoder layer in the backward, as the
+    reference does (its encoder is not rematerialized)."""
+    enc_out = encode(cfg, params, batch["frames"], train)
     x = _embed(cfg, params, batch["tokens"])
     pos = torch.arange(x.shape[1], device=x.device)
-    x, _ = _decoder(cfg, params, x, enc_out, None, pos=pos, mode="fwd")
-    return _head(cfg, params, x), 0.0
+
+    def layer(i: int, p: dict, xv: torch.Tensor) -> torch.Tensor:
+        return _dec_block(cfg, p, xv, enc_out, pos=pos, mode="fwd", train=train)[0]
+
+    x = run_layers(unstack_layers(params["dec_blocks"], cfg.n_layers), x, layer, remat)
+    return _head(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(cfg, params: dict, batch: dict, train: bool = True,
+            remat: bool = False) -> tuple[torch.Tensor, dict]:
+    """(nll, {"nll", "aux"}) of a batch with ``labels`` (B, S); no aux term,
+    as in the reference."""
+    logits, aux = forward(cfg, params, batch, train, remat=remat)
+    nll = token_nll(logits, batch["labels"])
+    return nll, {"nll": nll, "aux": aux}
 
 
 def cache_shapes(cfg, batch_size: int, max_len: int) -> dict[str, tuple]:
@@ -193,34 +210,36 @@ def init_cache(cfg, batch_size: int, max_len: int, dtype=torch.float32,
             for name, shape in cache_shapes(cfg, batch_size, max_len).items()}
 
 
-def prefill(cfg, params: dict, batch: dict, cache: dict) -> tuple[torch.Tensor, dict]:
+def prefill(cfg, params: dict, batch: dict, cache: dict,
+            train: bool = False) -> tuple[torch.Tensor, dict]:
     """Encode ``batch["frames"]`` and run the prompt ``batch["tokens"]``
     (B, S): its K/V go into cache rows [0, S), the cross K/V replace
     ``xk``/``xv``.  Returns (last-position logits (B, 1, V), cache)."""
-    enc_out = encode(cfg, params, batch["frames"])
+    enc_out = encode(cfg, params, batch["frames"], train)
     x = _embed(cfg, params, batch["tokens"])
     pos = torch.arange(x.shape[1], device=x.device)
-    x, new_cache = _decoder(cfg, params, x, enc_out, cache, pos=pos, mode="prefill")
+    x, new_cache = _decoder(cfg, params, x, enc_out, cache, pos=pos, mode="prefill",
+                            train=train)
     return _head(cfg, params, x[:, -1:, :]), new_cache
 
 
 def decode_step(cfg, params: dict, tokens: torch.Tensor, cache: dict,
-                t) -> tuple[torch.Tensor, dict]:
+                t, train: bool = False) -> tuple[torch.Tensor, dict]:
     """One decode step: ``tokens`` (B, 1) at the shared length ``t``."""
     x = _embed(cfg, params, tokens)
     pos = torch.tensor([int(t)], device=x.device)
     x, new_cache = _decoder(cfg, params, x, None, cache, pos=pos, mode="decode",
-                            cache_len=int(t))
+                            cache_len=int(t), train=train)
     return _head(cfg, params, x), new_cache
 
 
 def chunk_step(cfg, params: dict, tokens: torch.Tensor, pos: torch.Tensor, cache: dict,
-               lengths: torch.Tensor) -> tuple[torch.Tensor, dict]:
+               lengths: torch.Tensor, train: bool = False) -> tuple[torch.Tensor, dict]:
     """Per-slot step for the paged serving engine: tokens/pos (B, C),
     lengths (B,) per-slot K/V write offsets; the cross K/V cached at
     prefill are reused unchanged.  Returns (logits (B, C, V), cache)."""
     x = _embed(cfg, params, tokens)
     x, new_cache = _decoder(cfg, params, x, None, cache, pos=pos, mode="decode",
-                            cache_len=lengths)
+                            cache_len=lengths, train=train)
     return _head(cfg, params, x), new_cache
 

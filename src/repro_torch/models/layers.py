@@ -1,15 +1,17 @@
 """Transformer building blocks (port of ``repro/models/layers.py``).
 
 Params are plain dicts of tensors.  Every projection goes through
-:func:`linear`, which dispatches on the param dict: ``{'sign','zero',
-'scale'}`` = frozen 2-bit T-SAR planes (the serving path, through the
-hand-written kernels and the active execution plan), ``{'wd'}`` = plain
-dense fp.
+:func:`linear`, which dispatches on the param dict: ``{'w'}`` = ternary
+BitLinear latent weights (``train=True``: the QAT fake-quant forward with
+straight-through gradients; ``train=False``: the exact int8 pipeline),
+``{'sign','zero','scale'}`` = frozen 2-bit T-SAR planes (the serving path,
+through the hand-written kernels and the active execution plan), ``{'wd'}``
+= plain dense fp (embeddings, router, frontends, and every weight of a
+``cfg.ternary=False`` model).
 
 Attention has the reference's four branches (flat token-packed,
 synchronous decode, chunked append, full sequence) and its cross-attention
-(``kv_x``, the enc-dec decoder).  The latent ``{'w'}`` QAT forward is a
-later slice.
+(``kv_x``, the enc-dec decoder).
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import ternary
+from repro_torch.core import bitlinear, ternary
 from repro_torch.kernels import ops
 from repro_torch.plan import registry
 from repro_torch.plan import runtime as plan_runtime
@@ -36,9 +38,12 @@ def normal(generator: torch.Generator, shape: tuple, std: float,
     return torch.randn(shape, generator=generator, dtype=torch.float32, device=dev) * std
 
 
-def init_linear(generator: torch.Generator, k: int, m: int, dev: torch.device) -> dict:
-    """BitLinear latent weights ``{'w'}`` (k, m), fan-in scaled."""
-    return {"w": normal(generator, (k, m), 1.0 / math.sqrt(k), dev)}
+def init_linear(generator: torch.Generator, k: int, m: int, dev: torch.device,
+                ternary_layer: bool = True) -> dict:
+    """(k, m) weights, fan-in scaled: BitLinear latent ``{'w'}``, or plain
+    dense ``{'wd'}`` for a non-ternary layer."""
+    w = normal(generator, (k, m), 1.0 / math.sqrt(k), dev)
+    return {"w": w} if ternary_layer else {"wd": w}
 
 
 def init_rmsnorm(d: int, dev: torch.device) -> dict:
@@ -50,38 +55,39 @@ def init_attention(cfg, generator: torch.Generator, dev: torch.device,
     """Q/K/V/O projections, with qk-norm gains where the config asks for
     them; a ``cross`` block (enc-dec) has none."""
     d, h, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    p = {"wq": init_linear(generator, d, h * dh, dev),
-         "wk": init_linear(generator, d, hk * dh, dev),
-         "wv": init_linear(generator, d, hk * dh, dev),
-         "wo": init_linear(generator, h * dh, d, dev)}
+    tern = cfg.ternary
+    p = {"wq": init_linear(generator, d, h * dh, dev, tern),
+         "wk": init_linear(generator, d, hk * dh, dev, tern),
+         "wv": init_linear(generator, d, hk * dh, dev, tern),
+         "wo": init_linear(generator, h * dh, d, dev, tern)}
     if cfg.qk_norm and not cross:
         p["qn"], p["kn"] = init_rmsnorm(dh, dev), init_rmsnorm(dh, dev)
     return p
 
 
 def init_mlp(cfg, generator: torch.Generator, dev: torch.device) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
+    d, f, tern = cfg.d_model, cfg.d_ff, cfg.ternary
     if cfg.mlp_gated:
-        return {"w_gate": init_linear(generator, d, f, dev),
-                "w_up": init_linear(generator, d, f, dev),
-                "w_down": init_linear(generator, f, d, dev)}
-    return {"w_up": init_linear(generator, d, f, dev),
-            "w_down": init_linear(generator, f, d, dev)}
+        return {"w_gate": init_linear(generator, d, f, dev, tern),
+                "w_up": init_linear(generator, d, f, dev, tern),
+                "w_down": init_linear(generator, f, d, dev, tern)}
+    return {"w_up": init_linear(generator, d, f, dev, tern),
+            "w_down": init_linear(generator, f, d, dev, tern)}
 
 
 # ---------------------------------------------------------------------------
 # Linear dispatch
 # ---------------------------------------------------------------------------
 
-def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+def linear(p: dict, x: torch.Tensor, train: bool = True) -> torch.Tensor:
     if "wd" in p:
         return x @ p["wd"].to(x.dtype)
+    if "w" in p:  # BitLinear latent weights
+        if train:
+            return bitlinear.apply_train(p, x)
+        return bitlinear.apply_eval(p, x)
     if "sign" in p:  # frozen packed planes: decode-in-registers kernel
         return _packed_linear(p, x).to(x.dtype)
-    if "w" in p:
-        raise NotImplementedError(
-            "latent {'w'} BitLinear forward is not ported yet (training "
-            "slice); freeze the params with serving.freeze_params first")
     raise ValueError(f"unrecognized linear params: {list(p)}")
 
 
@@ -255,7 +261,7 @@ def _windowed(cfg, valid: torch.Tensor, kpos: torch.Tensor, qpos: torch.Tensor,
 def attention(cfg, p: dict, x: torch.Tensor, *, pos: torch.Tensor, is_global: bool,
               kv_x: torch.Tensor | None = None, causal: bool = True,
               cache: dict | None = None, cache_len=None,
-              slot: torch.Tensor | None = None,
+              slot: torch.Tensor | None = None, train: bool = True,
               return_kv: bool = False) -> tuple[torch.Tensor, dict | tuple | None]:
     """Self-attention with GQA, RoPE, qk-norm, the attention softcap and
     sliding-window masking on local layers.  x (B, S, D).  With ``kv_x``
@@ -290,9 +296,9 @@ def attention(cfg, p: dict, x: torch.Tensor, *, pos: torch.Tensor, is_global: bo
     b, s, _ = x.shape
 
     src = x if kv_x is None else kv_x
-    q = _split_heads(linear(p["wq"], x), h, dh)         # (B,S,H,Dh)
-    k = _split_heads(linear(p["wk"], src), hk, dh)      # (B,S|T,Hk,Dh)
-    v = _split_heads(linear(p["wv"], src), hk, dh)
+    q = _split_heads(linear(p["wq"], x, train), h, dh)         # (B,S,H,Dh)
+    k = _split_heads(linear(p["wk"], src, train), hk, dh)      # (B,S|T,Hk,Dh)
+    v = _split_heads(linear(p["wv"], src, train), hk, dh)
     if "qn" in p:
         q = rmsnorm(p["qn"], q, cfg.norm_eps)
         k = rmsnorm(p["kn"], k, cfg.norm_eps)
@@ -368,7 +374,7 @@ def attention(cfg, p: dict, x: torch.Tensor, *, pos: torch.Tensor, is_global: bo
                          for i in range(0, s, Q_CHUNK)], dim=1)
     else:
         ctx = attend_core(cfg, qg, k64, v64, mask, x.dtype)
-    out = linear(p["wo"], ctx.reshape(x.shape[0], x.shape[1], h * dh))
+    out = linear(p["wo"], ctx.reshape(x.shape[0], x.shape[1], h * dh), train)
     if return_kv:
         return out, (k, v)
     return out, new_cache
@@ -394,7 +400,9 @@ def attend_core(cfg, qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # MLP
 # ---------------------------------------------------------------------------
 
-def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp(p: dict, x: torch.Tensor, train: bool = True) -> torch.Tensor:
     if "w_gate" in p:
-        return linear(p["w_down"], silu(linear(p["w_gate"], x)) * linear(p["w_up"], x))
-    return linear(p["w_down"], F.gelu(linear(p["w_up"], x), approximate="tanh"))
+        return linear(p["w_down"], silu(linear(p["w_gate"], x, train))
+                      * linear(p["w_up"], x, train), train)
+    return linear(p["w_down"], F.gelu(linear(p["w_up"], x, train), approximate="tanh"),
+                  train)

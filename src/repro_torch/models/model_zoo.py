@@ -33,40 +33,46 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> dict:
     return _mod(cfg).init_params(cfg, generator, device)
 
 
-def forward(cfg, params, batch):
+def forward(cfg, params, batch, train=True, remat=False):
     """Teacher-forced logits and aux; see ``transformer.forward`` and
     ``encdec.forward``."""
-    return _mod(cfg).forward(cfg, params, batch)
+    return _mod(cfg).forward(cfg, params, batch, train, remat=remat)
+
+
+def loss_fn(cfg, params, batch, train=True, remat=False):
+    """(loss, {"nll", "aux"}); see ``transformer.loss_fn`` and
+    ``encdec.loss_fn``."""
+    return _mod(cfg).loss_fn(cfg, params, batch, train, remat=remat)
 
 
 def init_cache(cfg, batch_size: int, max_len: int, dtype=torch.float32, device="cuda"):
     return _mod(cfg).init_cache(cfg, batch_size, max_len, dtype, device)
 
 
-def prefill(cfg, params, batch, cache):
+def prefill(cfg, params, batch, cache, train=False):
     """Whole-prompt prefill; see ``transformer.prefill`` and
     ``encdec.prefill`` (whose batch carries ``frames``)."""
-    return _mod(cfg).prefill(cfg, params, batch, cache)
+    return _mod(cfg).prefill(cfg, params, batch, cache, train)
 
 
-def decode_step(cfg, params, tokens, cache, t):
+def decode_step(cfg, params, tokens, cache, t, train=False):
     """One synchronous decode step at length ``t``; see
     ``transformer.decode_step``."""
-    return _mod(cfg).decode_step(cfg, params, tokens, cache, t)
+    return _mod(cfg).decode_step(cfg, params, tokens, cache, t, train)
 
 
-def chunk_step(cfg, params, tokens, pos, cache, lengths):
+def chunk_step(cfg, params, tokens, pos, cache, lengths, train=False):
     """Per-slot chunked-append step (paged serving engine, ``chunked``
     policy): tokens/pos (B, C), lengths (B,) per-slot write offsets.  A
     slot's first chunk may start at a nonzero ``lengths[i]`` against a
     pre-populated block table (prefix-cache fork).  See
     ``transformer.chunk_step``."""
-    return _mod(cfg).chunk_step(cfg, params, tokens, pos, cache, lengths)
+    return _mod(cfg).chunk_step(cfg, params, tokens, pos, cache, lengths, train)
 
 
-def flat_step(cfg, params, tokens, slot, pos, cache, emit_row):
+def flat_step(cfg, params, tokens, slot, pos, cache, emit_row, train=False):
     """Flat token-packed step; see ``transformer.flat_step``."""
-    return _mod(cfg).flat_step(cfg, params, tokens, slot, pos, cache, emit_row)
+    return _mod(cfg).flat_step(cfg, params, tokens, slot, pos, cache, emit_row, train)
 
 
 def init_paged_cache(cfg, slots: int, num_blocks: int, block_size: int,

@@ -8,13 +8,29 @@ independently with capacity ``C = ceil(S * top_k * capacity_factor / E)``;
 overflow tokens are dropped (the residual connection carries them).
 
 The routed experts run the reference's function: the frozen planes are
-decoded to bf16 weights on every call and the three expert products and the
-combine are bf16 einsums.  XLA on the CPU computes a bf16 dot in float32 and
-rounds the result once to bf16, and it spells ``silu`` on bf16 as
+decoded to bf16 weights on every call (latent weights are ternarized, with
+a straight-through gradient when training) and the three expert products
+and the dispatch and combine are bf16 einsums.  XLA computes a bf16 dot as
+a float32 sum rounded once to bf16, and it spells ``silu`` on bf16 as
 ``1 / (1 + exp(-x))`` with every op rounded to bf16; :func:`_bf16_einsum`
 and :func:`_silu_bf16` reproduce both, so the CPU port matches the
-reference's expert outputs element for element at the reduced shapes.  No
-hand-written kernel runs here: the decode is eager PyTorch and writes the
+reference's expert outputs element for element at the reduced shapes.
+
+On the GPU every sum of this module is independent of the call's row
+count: the bf16 einsums and the router's logits sum in float64 and round
+once (to float32, then bf16 for the einsums).  There a float32 product's
+reduction order follows the call's shape, so the same token's router
+logits and expert outputs moved by an ulp between the serving policies'
+call layouts (4 rows alone against inside a 64-row call), enough to flip a
+greedy token; the float64 sums differ far below a float32 ulp, so rounding
+them once gives every layout the same bits with high probability (the
+remedy of the attention core and rmsnorm, ``models/layers.py``).  On the
+CPU the sums stay float32: there they equal XLA's own float32 sums bit for
+bit at the reduced shapes, which a float64 sum does not (XLA's float32 sum
+lands a bf16 ulp away from the exact one in about 1 of 6,000 expert
+outputs).
+
+No hand-written kernel runs here: the decode is eager PyTorch and writes the
 decoded weights out (``ROADMAP.md`` lists the grouped-expert kernel that
 would keep them in registers).  The shared experts go through
 ``layers.mlp``, so frozen ones run ``tsar_matmul``.
@@ -29,6 +45,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import bitlinear, ternary
 from repro_torch.models import layers
 
 # Dispatch-group size: a call row longer than this (and a multiple of it) is
@@ -39,23 +56,26 @@ MAX_GROUP = 4096
 
 def init_moe(cfg, generator: torch.Generator, dev: torch.device) -> dict:
     """Latent params: the fp router ``{'wd'}`` (d, E), the routed expert
-    stacks ``{'w'}`` (E, K, M) and, with ``n_shared_experts``, one gated MLP
-    of width ``d_expert * n_shared_experts``."""
+    stacks ``{'w'}`` (E, K, M) (``{'wd'}`` for a non-ternary config) and,
+    with ``n_shared_experts``, one gated MLP of width
+    ``d_expert * n_shared_experts``."""
     d = cfg.d_model
     de = cfg.d_expert or cfg.d_ff
     e = cfg.n_experts
+    tern = cfg.ternary
 
     def expert_stack(kin: int, kout: int) -> dict:
-        return {"w": layers.normal(generator, (e, kin, kout), 1.0 / math.sqrt(kin), dev)}
+        w = layers.normal(generator, (e, kin, kout), 1.0 / math.sqrt(kin), dev)
+        return {"w": w} if tern else {"wd": w}
 
     p = {"router": {"wd": layers.normal(generator, (d, e), 0.02, dev)},
          "w_gate": expert_stack(d, de), "w_up": expert_stack(d, de),
          "w_down": expert_stack(de, d)}
     if cfg.n_shared_experts:
         ds = de * cfg.n_shared_experts
-        p["shared"] = {"w_gate": layers.init_linear(generator, d, ds, dev),
-                       "w_up": layers.init_linear(generator, d, ds, dev),
-                       "w_down": layers.init_linear(generator, ds, d, dev)}
+        p["shared"] = {"w_gate": layers.init_linear(generator, d, ds, dev, tern),
+                       "w_up": layers.init_linear(generator, d, ds, dev, tern),
+                       "w_down": layers.init_linear(generator, ds, d, dev, tern)}
     return p
 
 
@@ -74,24 +94,35 @@ def _decode_planes(sign: torch.Tensor, zero: torch.Tensor,
     return t * scale[:, None, :].to(torch.bfloat16)
 
 
-def _expert_weights(p: dict) -> torch.Tensor:
-    """Effective expert weights (E, K, M) from dense ``{'wd'}`` or frozen
-    planes."""
+def _expert_weights(p: dict, train: bool = True) -> torch.Tensor:
+    """Effective expert weights (E, K, M) from dense ``{'wd'}``, latent
+    ``{'w'}`` (``train``: the straight-through ternarization, else
+    ``t * scale``) or frozen planes."""
     if "wd" in p:
         return p["wd"]
+    if "w" in p:
+        if train:
+            return bitlinear.ste_ternarize(p["w"])
+        t, scale = ternary.absmean_ternarize(p["w"])
+        return t * scale[..., None, :]
     if "sign" in p:
         return _decode_planes(p["sign"], p["zero"], p["scale"])
-    if "w" in p:
-        raise NotImplementedError(
-            "latent {'w'} expert forward is not ported yet (training slice); "
-            "freeze the params with serving.freeze_params first")
     raise ValueError(f"unrecognized expert params: {list(p)}")
 
 
+def _sum_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype this module's sums run in: float64 on the GPU, float32 on
+    the CPU (see the module docstring)."""
+    return torch.float64 if x.is_cuda else torch.float32
+
+
 def _bf16_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``einsum`` of bf16 operands accumulated in float32 and rounded once
-    to bf16, as XLA computes a bf16 dot."""
-    return torch.einsum(eq, a.to(torch.float32), b.to(torch.float32)).to(torch.bfloat16)
+    """``einsum`` of bf16 operands rounded to bf16, as XLA computes a bf16
+    dot (a float32 sum rounded once); on the GPU summed in float64 and
+    rounded to float32 first, so the result does not depend on the call's
+    shape (see the module docstring)."""
+    acc = _sum_dtype(a)
+    return torch.einsum(eq, a.to(acc), b.to(acc)).to(torch.float32).to(torch.bfloat16)
 
 
 def _silu_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -100,10 +131,10 @@ def _silu_bf16(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
-def _expert_ffn(p: dict, xe: torch.Tensor) -> torch.Tensor:
+def _expert_ffn(p: dict, xe: torch.Tensor, train: bool = True) -> torch.Tensor:
     """Routed-expert FFN on dispatched tokens xe (B, E, C, D) bf16 ->
     (B, E, C, D) bf16."""
-    wg, wu, wd = (_expert_weights(p[n]).to(torch.bfloat16)
+    wg, wu, wd = (_expert_weights(p[n], train).to(torch.bfloat16)
                   for n in ("w_gate", "w_up", "w_down"))
     h = _silu_bf16(_bf16_einsum("becd,edf->becf", xe, wg)) * _bf16_einsum(
         "becd,edf->becf", xe, wu)
@@ -118,6 +149,13 @@ def _top_k(gates: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def _router_logits(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The fp router's float32 logits of x (B, S, D); on the GPU summed in
+    float64 and rounded once (see the module docstring)."""
+    acc = _sum_dtype(x)
+    return (x.to(acc) @ p["wd"].to(acc)).to(torch.float32)
+
+
 def _route(cfg, p: dict, x: torch.Tensor) -> dict:
     """Router of one call, x (B, S, D) -> ``gates`` (B, S, E) f32, the
     renormalised ``topw`` and ``topi`` (B, S, k), the one-hot ``dispatch``
@@ -128,7 +166,7 @@ def _route(cfg, p: dict, x: torch.Tensor) -> dict:
     cap = max(1, math.ceil(s * k * cfg.capacity_factor / e))
     dev = x.device
 
-    gates = torch.softmax(layers.linear(p["router"], x.to(torch.float32)), dim=-1)
+    gates = torch.softmax(_router_logits(p["router"], x), dim=-1)
     topw, topi = _top_k(gates, k)
     topw = topw / (torch.sum(topw, dim=-1, keepdim=True) + 1e-9)
 
@@ -156,7 +194,8 @@ def _route(cfg, p: dict, x: torch.Tensor) -> dict:
             "combine": combine, "aux": aux.to(torch.float32)}
 
 
-def moe_forward(cfg, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_forward(cfg, p: dict, x: torch.Tensor,
+                train: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (y (B, S, D), the Switch load-balancing aux loss, a
     float32 scalar)."""
     b0, s0, d = x.shape
@@ -164,8 +203,8 @@ def moe_forward(cfg, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tens
         x = x.reshape(b0 * (s0 // MAX_GROUP), MAX_GROUP, d)
     r = _route(cfg, p, x)
     xe = _bf16_einsum("bsec,bsd->becd", r["dispatch"], x.to(torch.bfloat16))  # (B,E,C,D)
-    out_e = _expert_ffn(p, xe)
+    out_e = _expert_ffn(p, xe, train)
     y = _bf16_einsum("bsec,becd->bsd", r["combine"].to(torch.bfloat16), out_e).to(x.dtype)
     if cfg.n_shared_experts:
-        y = y + layers.mlp(p["shared"], x)
+        y = y + layers.mlp(p["shared"], x, train)
     return y.reshape(b0, s0, d), r["aux"]

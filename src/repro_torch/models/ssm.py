@@ -33,8 +33,8 @@ def init_ssm(cfg, generator: torch.Generator, dev: torch.device) -> dict:
     # in_proj emits [z (di), x (di), B (n), C (n), dt (nh)]
     d_in = 2 * di + 2 * n + nh
     return {
-        "in_proj": layers.init_linear(generator, d, d_in, dev),
-        "out_proj": layers.init_linear(generator, di, d, dev),
+        "in_proj": layers.init_linear(generator, d, d_in, dev, cfg.ternary),
+        "out_proj": layers.init_linear(generator, di, d, dev, cfg.ternary),
         "conv_w": layers.normal(generator, (cfg.ssm_conv_width, conv_dim), 0.2, dev),
         "conv_b": torch.zeros((conv_dim,), dtype=torch.float32, device=dev),
         "A_log": torch.log(torch.linspace(1.0, 16.0, nh, dtype=torch.float32, device=dev)),
@@ -122,7 +122,7 @@ def ssd_chunked(xd: torch.Tensor, a_dt: torch.Tensor, bmat: torch.Tensor,
     return y, carry
 
 
-def ssm_forward(cfg, p: dict, u: torch.Tensor, *,
+def ssm_forward(cfg, p: dict, u: torch.Tensor, train: bool = True, *,
                 initial_state: torch.Tensor | None = None,
                 initial_conv: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  u (B, S, D) -> (y (B, S, D), final SSD state
@@ -138,7 +138,7 @@ def ssm_forward(cfg, p: dict, u: torch.Tensor, *,
     di, n, nh, _ = _dims(cfg)
     hd = cfg.ssm_head_dim
 
-    z, xs, bs, cs, dt = _split_in(cfg, layers.linear(p["in_proj"], u))
+    z, xs, bs, cs, dt = _split_in(cfg, layers.linear(p["in_proj"], u, train))
     xbc = torch.cat([xs, bs, cs], dim=-1)                          # (B,S,conv_dim)
     xbc = layers.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"], init=initial_conv))
     xs, bs, cs = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
@@ -152,7 +152,7 @@ def ssm_forward(cfg, p: dict, u: torch.Tensor, *,
     y = y + xh * p["D"][None, None, :, None]
     y = y.reshape(b, s, di)
     y = layers.rmsnorm(p["norm"], y * layers.silu(z), cfg.norm_eps)
-    return layers.linear(p["out_proj"], y), final
+    return layers.linear(p["out_proj"], y, train), final
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -187,13 +187,14 @@ def init_ssm_cache(cfg, batch: int, dtype=torch.float32, device="cuda") -> dict:
     }
 
 
-def ssm_decode_step(cfg, p: dict, u: torch.Tensor, cache: dict) -> tuple[torch.Tensor, dict]:
+def ssm_decode_step(cfg, p: dict, u: torch.Tensor, cache: dict,
+                    train: bool = False) -> tuple[torch.Tensor, dict]:
     """Single-token step.  u (B, 1, D) -> (y (B, 1, D), new {'conv','state'})."""
     b = u.shape[0]
     di, n, nh, _ = _dims(cfg)
     hd = cfg.ssm_head_dim
 
-    z, xs, bs, cs, dt = _split_in(cfg, layers.linear(p["in_proj"], u[:, 0, :]))
+    z, xs, bs, cs, dt = _split_in(cfg, layers.linear(p["in_proj"], u[:, 0, :], train))
     xbc = torch.cat([xs, bs, cs], dim=-1)                          # (B,conv_dim)
 
     # Rolling conv state: window = [conv_state ; x_t]
@@ -210,5 +211,5 @@ def ssm_decode_step(cfg, p: dict, u: torch.Tensor, cache: dict) -> tuple[torch.T
     y = torch.einsum("bn,bhpn->bhp", cs, state) + xh * p["D"][None, :, None]
     y = y.reshape(b, di)
     y = layers.rmsnorm(p["norm"], y * layers.silu(z), cfg.norm_eps)
-    out = layers.linear(p["out_proj"], y)[:, None, :]
+    out = layers.linear(p["out_proj"], y, train)[:, None, :]
     return out, {"conv": win[:, 1:, :], "state": state}

@@ -6,7 +6,9 @@ reference; the reference's ``lax.scan`` over that axis becomes a Python loop
 over the ``L`` slices.  Heterogeneous local/global attention stacks (gemma,
 hymba) take each layer's ``is_global`` flag from the config.  Entry points:
 
-* ``forward``     -- full-sequence logits (no cache) and the MoE aux loss;
+* ``forward``     -- full-sequence logits (no cache) and the MoE aux loss,
+  with ``train`` (the QAT forward of latent weights) and ``remat``
+  (activation recomputation per layer); ``loss_fn`` scores it;
 * ``prefill``     -- full-sequence forward that also fills the KV/SSM caches;
 * ``decode_step`` -- one token per slot at a shared length;
 * ``chunk_step``  -- per-slot chunks at per-slot offsets (``chunked`` policy;
@@ -19,14 +21,19 @@ and ``prefill`` take precomputed patch embeddings ``batch["patches"]``
 (B, frontend_seq, frontend_dim), project them with the dense fp
 ``frontend_proj`` and put them before the token embeddings, so positions
 ``0 .. frontend_seq - 1`` hold the patches.  The enc-dec family lives in
-``models/encdec.py`` (``model_zoo`` dispatches); ``loss_fn`` and
-rematerialization wait for the training slice.
+``models/encdec.py`` (``model_zoo`` dispatches).
+
+``train`` selects the forward of latent ``{'w'}`` weights, as in the
+reference: ``True`` (the default of ``forward`` and ``loss_fn``) runs the
+straight-through QAT forward, ``False`` (the default of the serving entry
+points) the exact int8 pipeline; frozen planes ignore it.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers
@@ -53,9 +60,6 @@ def init_block(cfg, generator: torch.Generator, device="cuda") -> dict:
     """One layer's latent fp32 params (the reference's ``_init_block``),
     drawn from ``generator``, which must live on ``device``."""
     _check_family(cfg, "init_block")
-    if not cfg.ternary:
-        raise NotImplementedError(
-            f"init_block: only ternary configs are ported (got {cfg.name!r})")
     dev = resolve_device(device)
     d = cfg.d_model
     if cfg.family == "ssm":
@@ -116,12 +120,24 @@ def layer_slice(tree, i: int):
     return tree[i]
 
 
+def unstack_layers(tree, n: int) -> list:
+    """The ``n`` per-layer trees of a stacked tree, every leaf unbound once
+    along ``L``.  Its backward is one ``stack`` per leaf; slicing layer by
+    layer (:func:`layer_slice`) would write a zero tensor of the whole stack
+    into the gradient for every layer (2.1 GB per layer and MLP projection
+    of the full-width bitnet)."""
+    if isinstance(tree, dict):
+        per = {k: unstack_layers(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
 
 def _block(cfg, p: dict, x: torch.Tensor, *, flag: bool, pos: torch.Tensor, mode: str,
-           cache: dict | None = None, cache_len=None,
+           train: bool = False, cache: dict | None = None, cache_len=None,
            slot: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor | float,
                                                       dict | None]:
     """One layer.  ``mode``: ``"fwd"`` (no cache), ``"prefill"`` (the
@@ -135,12 +151,12 @@ def _block(cfg, p: dict, x: torch.Tensor, *, flag: bool, pos: torch.Tensor, mode
 
     def ssm_branch() -> torch.Tensor:
         if mode == "decode":
-            y, sc = ssm_lib.ssm_decode_step(cfg, p["ssm"], h, cache)
+            y, sc = ssm_lib.ssm_decode_step(cfg, p["ssm"], h, cache, train)
             new_cache.update(sc)
             return y
-        y, final = ssm_lib.ssm_forward(cfg, p["ssm"], h)
+        y, final = ssm_lib.ssm_forward(cfg, p["ssm"], h, train)
         if mode == "prefill":
-            new_cache.update(_ssm_prefill_cache(cfg, p["ssm"], h, final))
+            new_cache.update(_ssm_prefill_cache(cfg, p["ssm"], h, final, train))
         return y
 
     if cfg.family == "ssm":
@@ -149,16 +165,17 @@ def _block(cfg, p: dict, x: torch.Tensor, *, flag: bool, pos: torch.Tensor, mode
     if mode == "decode":
         attn_out, ac = layers.attention(cfg, p["attn"], h, pos=pos, is_global=flag,
                                         cache={"k": cache["k"], "v": cache["v"]},
-                                        cache_len=cache_len, slot=slot)
+                                        cache_len=cache_len, slot=slot, train=train)
         new_cache.update(ac)
     elif mode == "prefill":
         attn_out, (k, v) = layers.attention(cfg, p["attn"], h, pos=pos, is_global=flag,
-                                            return_kv=True)
+                                            train=train, return_kv=True)
         zero = torch.zeros((x.shape[0],), dtype=torch.long)
         new_cache.update({"k": layers.write_rows(cache["k"], k, zero),
                           "v": layers.write_rows(cache["v"], v, zero)})
     else:
-        attn_out, _ = layers.attention(cfg, p["attn"], h, pos=pos, is_global=flag)
+        attn_out, _ = layers.attention(cfg, p["attn"], h, pos=pos, is_global=flag,
+                                       train=train)
 
     if cfg.family == "hybrid":
         # Hymba: the mean of the per-branch normalized outputs.
@@ -168,18 +185,19 @@ def _block(cfg, p: dict, x: torch.Tensor, *, flag: bool, pos: torch.Tensor, mode
 
     h2 = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
     if cfg.is_moe:
-        y, aux = moe_lib.moe_forward(cfg, p["moe"], h2)
+        y, aux = moe_lib.moe_forward(cfg, p["moe"], h2, train)
     else:
-        y = layers.mlp(p["mlp"], h2)
+        y = layers.mlp(p["mlp"], h2, train)
     return x + y, aux, (new_cache or None)
 
 
-def _ssm_prefill_cache(cfg, p: dict, h: torch.Tensor, final_state: torch.Tensor) -> dict:
+def _ssm_prefill_cache(cfg, p: dict, h: torch.Tensor, final_state: torch.Tensor,
+                       train: bool = False) -> dict:
     """Conv tail + final SSD state so decode can continue the recurrence.
     The pre-conv xBC tail is recomputed: one more ``in_proj`` call, on the
     last W-1 positions."""
     tail = h[:, -(cfg.ssm_conv_width - 1):, :]
-    _, xs, bs, cs, _ = ssm_lib._split_in(cfg, layers.linear(p["in_proj"], tail))
+    _, xs, bs, cs, _ = ssm_lib._split_in(cfg, layers.linear(p["in_proj"], tail, train))
     return {"conv": torch.cat([xs, bs, cs], dim=-1), "state": final_state}
 
 
@@ -235,16 +253,62 @@ def _embed(cfg, params: dict, tokens: torch.Tensor,
 # Entry points
 # ---------------------------------------------------------------------------
 
-def forward(cfg, params: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor | float]:
+def run_layers(blocks: list, carry, layer_fn, remat: bool):
+    """``carry = layer_fn(i, p, carry)`` over the per-layer trees ``blocks``
+    (the reference's scan body); with ``remat`` each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in the backward instead of kept, as the reference's
+    ``jax.checkpoint`` with ``nothing_saveable`` does."""
+    for i, p in enumerate(blocks):
+        if remat:
+            carry = checkpoint(layer_fn, i, p, carry, use_reentrant=False)
+        else:
+            carry = layer_fn(i, p, carry)
+    return carry
+
+
+def forward(cfg, params: dict, batch: dict, train: bool = True,
+            remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced logits (B, S, V) of ``batch["tokens"]`` (B, S), and the
-    auxiliary loss summed over the layers (a float32 scalar tensor; 0.0
+    auxiliary loss summed over the layers (a float32 scalar tensor, 0
     without MoE layers).  A VLM batch's ``patches`` add P leading
-    positions: (B, P + S, V)."""
+    positions: (B, P + S, V).  ``train`` picks the latent weights' forward
+    (module docstring); ``remat`` recomputes each layer's activations in the
+    backward (:func:`run_layers`).  The stacked layer params are unbound
+    once (:func:`unstack_layers`), so the backward stacks each leaf's
+    gradient once."""
     _check_family(cfg, "forward")
     x = _embed(cfg, params, batch["tokens"], batch.get("patches"))
     pos = torch.arange(x.shape[1], device=x.device)
-    x, aux, _ = _layers(cfg, params, x, None, pos=pos, mode="fwd")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def layer(i: int, p: dict, carry: tuple) -> tuple:
+        xv, a, _ = _block(cfg, p, carry[0], flag=cfg.layer_is_global(i), pos=pos,
+                          mode="fwd", train=train)
+        return xv, carry[1] + a
+
+    x, aux = run_layers(unstack_layers(params["blocks"], cfg.n_layers), (x, aux),
+                        layer, remat)
     return _head(cfg, params, x), aux
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token negative log-likelihood of ``labels`` (B, S) under
+    ``logits`` (B, S, V) over the positions with ``labels >= 0``."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    return torch.sum((lse - gold) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def loss_fn(cfg, params: dict, batch: dict, train: bool = True,
+            remat: bool = False) -> tuple[torch.Tensor, dict]:
+    """(``nll + 0.01 * aux``, {"nll", "aux"}) of a batch with ``labels``
+    (B, S); a VLM's leading patch positions are not scored."""
+    logits, aux = forward(cfg, params, batch, train, remat=remat)
+    labels = batch["labels"]
+    nll = token_nll(logits[:, -labels.shape[1]:, :], labels)
+    return nll + 0.01 * aux, {"nll": nll, "aux": aux}
 
 
 def cache_shapes(cfg, batch_size: int, max_len: int) -> dict[str, tuple]:
@@ -272,7 +336,8 @@ def init_cache(cfg, batch_size: int, max_len: int, dtype=torch.float32,
             for name, shape in cache_shapes(cfg, batch_size, max_len).items()}
 
 
-def prefill(cfg, params: dict, batch: dict, cache: dict) -> tuple[torch.Tensor, dict]:
+def prefill(cfg, params: dict, batch: dict, cache: dict,
+            train: bool = False) -> tuple[torch.Tensor, dict]:
     """Run the prompt ``batch["tokens"]`` (B, S), after a VLM batch's P
     ``patches``: its K/V go into ``cache`` rows [0, P + S), the SSM conv
     tail and final state replace the SSM leaves.  Returns (last-position
@@ -280,24 +345,24 @@ def prefill(cfg, params: dict, batch: dict, cache: dict) -> tuple[torch.Tensor, 
     _check_family(cfg, "prefill")
     x = _embed(cfg, params, batch["tokens"], batch.get("patches"))
     pos = torch.arange(x.shape[1], device=x.device)
-    x, _, new_cache = _layers(cfg, params, x, cache, pos=pos, mode="prefill")
+    x, _, new_cache = _layers(cfg, params, x, cache, pos=pos, mode="prefill", train=train)
     return _head(cfg, params, x[:, -1:, :]), new_cache
 
 
 def decode_step(cfg, params: dict, tokens: torch.Tensor, cache: dict,
-                t) -> tuple[torch.Tensor, dict]:
+                t, train: bool = False) -> tuple[torch.Tensor, dict]:
     """One decode step: ``tokens`` (B, 1) at the shared length ``t``.
     Returns (logits (B, 1, V), updated cache)."""
     _check_family(cfg, "decode_step")
     x = _embed(cfg, params, tokens)
     pos = torch.tensor([int(t)], device=x.device)
     x, _, new_cache = _layers(cfg, params, x, cache, pos=pos, mode="decode",
-                              cache_len=int(t))
+                              cache_len=int(t), train=train)
     return _head(cfg, params, x), new_cache
 
 
 def chunk_step(cfg, params: dict, tokens: torch.Tensor, pos: torch.Tensor, cache: dict,
-               lengths: torch.Tensor) -> tuple[torch.Tensor, dict]:
+               lengths: torch.Tensor, train: bool = False) -> tuple[torch.Tensor, dict]:
     """Chunked-append step for the paged serving engine (``chunked``
     policy).
 
@@ -318,13 +383,13 @@ def chunk_step(cfg, params: dict, tokens: torch.Tensor, pos: torch.Tensor, cache
                          f"slot (C == 1), got C = {tokens.shape[1]}")
     x = _embed(cfg, params, tokens)
     x, _, new_cache = _layers(cfg, params, x, cache, pos=pos, mode="decode",
-                              cache_len=lengths)
+                              cache_len=lengths, train=train)
     return _head(cfg, params, x), new_cache
 
 
 def flat_step(cfg, params: dict, tokens: torch.Tensor, slot: torch.Tensor,
-              pos: torch.Tensor, cache: dict,
-              emit_row: torch.Tensor) -> tuple[torch.Tensor, dict]:
+              pos: torch.Tensor, cache: dict, emit_row: torch.Tensor,
+              train: bool = False) -> tuple[torch.Tensor, dict]:
     """Flat token-packed step for the paged serving engine (``flat`` policy).
 
     tokens/slot/pos (T,) — one ragged batch of real tokens from many slots
@@ -341,7 +406,8 @@ def flat_step(cfg, params: dict, tokens: torch.Tensor, slot: torch.Tensor,
         raise ValueError(f"flat_step: the {cfg.family} recurrence needs the "
                          "rectangular layout (flat needs KV-cache attention)")
     x = _embed(cfg, params, tokens)[None, :, :]
-    x, _, new_cache = _layers(cfg, params, x, cache, pos=pos, mode="decode", slot=slot)
+    x, _, new_cache = _layers(cfg, params, x, cache, pos=pos, mode="decode", slot=slot,
+                              train=train)
     sel = x[0, emit_row]                       # (B, D) emitting rows only
     logits = _head(cfg, params, sel[None])     # (1, B, V)
     return logits[0], new_cache

@@ -22,13 +22,17 @@ layer stack's blocks die (``sparse="auto"``); an execution plan compiled
 once at init (or supplied) picks each projection's kernel, and every model
 call runs inside it: planned ``tsar_sparse_padded`` on a layer with pools
 runs the hand-written sparse kernel, the rest the ``tsar_matmul`` kernel.
+With ``packed=False`` the latent weights are served as they are (QAT
+serving: every projection runs the exact int8 pipeline of
+``core.bitlinear.apply_eval``, no kernel): no freeze, no pools, no plan;
+a supplied plan warns and is never consulted.  The reference engine's
+default is ``packed=False``; the port's is ``packed=True``, its main path.
 
 Every family is served: dense and MoE under any policy; SSM, hybrid,
 enc-dec and VLM under ``whole`` only, as in the reference.  An enc-dec
 prefill encodes zero ``frames`` and a VLM prefill projects zero
 ``patches``, the reference's stubs (a VLM slot's cache also holds the
-``frontend_seq`` patch positions before its prompt).  Latent
-(``packed=False``) serving is a later slice.
+``frontend_seq`` patch positions before its prompt).
 """
 from __future__ import annotations
 
@@ -240,12 +244,6 @@ _CHUNKABLE_FAMILIES = ("dense", "moe")
 _POLICIES = ("flat", "chunked", "whole")
 
 
-def _later_slice(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"ServingEngine: {what} is not ported yet; it comes with the "
-        f"{slice_name} slice of the port")
-
-
 class ServingEngine:
     def __init__(self, cfg, params, *, max_len: int = 512, batch_slots: int = 4,
                  packed: bool = True, cache_dtype=torch.float32, seed: int = 0,
@@ -255,8 +253,6 @@ class ServingEngine:
                  plan: ModelPlan | None = None, sparse: str | bool = "auto",
                  sparse_block: tuple | None = None,
                  prefix_cache: bool | int = False, tracer=None, device="cuda"):
-        if not packed:
-            raise _later_slice("latent (packed=False) serving", "training")
         if policy is None:
             policy = "flat" if cfg.family in _CHUNKABLE_FAMILIES else "whole"
         elif policy not in _POLICIES:
@@ -270,7 +266,8 @@ class ServingEngine:
         self.policy = policy
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = freeze_params(params, sparse=sparse, block_shape=sparse_block)
+        self.params = (freeze_params(params, sparse=sparse, block_shape=sparse_block)
+                       if packed else params)
         self.max_len = max_len
         self.slots = batch_slots
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -389,7 +386,8 @@ class ServingEngine:
 
         # Density telemetry, measured once at init from the packed planes on
         # their device (profile_density=False skips it).
-        self.density = density_telemetry(self.params) if profile_density else None
+        self.density = (density_telemetry(self.params)
+                        if packed and profile_density else None)
         if self.density is not None:
             self.stats["weight_density_mean"] = self.density["density_mean"]
             self.stats["block_density_mean"] = self.density["block_density_mean"]
@@ -398,17 +396,23 @@ class ServingEngine:
         # runs inside plan_runtime.activate(self.plan), and no select_kernel
         # call happens after this constructor returns.
         supplied = plan is not None
-        if plan is None:
+        if plan is None and packed:
             plan = compile_plan(self.params, BatchProfile(
                 decode_ns=(1, batch_slots),
                 prefill_ns=(prefill_chunk, batch_slots * (prefill_chunk + 1),
                             token_budget)))
         self.plan = plan
-        self.stats["plan_layers"] = len(plan.layers)
-        # Shapes shared by layers with conflicting plans take the default
-        # realization (the shape-keyed lookup cannot tell them apart).
-        self.stats["plan_shape_conflicts"] = len(plan.shape_conflicts())
-        if supplied:
+        if plan is not None:
+            self.stats["plan_layers"] = len(plan.layers)
+            # Shapes shared by layers with conflicting plans take the default
+            # realization (the shape-keyed lookup cannot tell them apart).
+            self.stats["plan_shape_conflicts"] = len(plan.shape_conflicts())
+        if supplied and not packed:
+            warnings.warn(
+                "repro_torch.serving.ServingEngine: a ModelPlan was supplied but "
+                "packed=False: latent serving never consults the plan",
+                UserWarning, stacklevel=2)
+        elif supplied:
             # A plan saved for another config resolves nothing and would
             # serve every layer unplanned while telemetry claims otherwise.
             matched, total = plan.coverage(self.params)
@@ -640,7 +644,8 @@ class ServingEngine:
                     decode_tokens=plan.decode_tokens,
                     kv_blocks=int(self.kv.blocks_in_use),
                     active_slots=sum(1 for s in self._slots if s is not None),
-                    kernel=self.plan.dominant_kernel(planned))
+                    kernel=(self.plan.dominant_kernel(planned)
+                            if self.plan is not None else None))
 
         toks = None
         if plan.emit.any():

@@ -11,6 +11,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import repro.configs as jconfigs
@@ -40,6 +41,18 @@ FLAT_FIELDS = ("tokens", "slot", "pos", "lengths", "n_real", "emit", "emit_row",
                "width", "view_blocks", "prefill_mask", "prefill_tokens", "decode_tokens")
 RECT_FIELDS = ("tokens", "pos", "lengths", "n_real", "emit", "emit_idx", "chunk",
                "view_blocks", "prefill_slot", "prefill_tokens", "decode_tokens")
+
+
+@pytest.fixture(autouse=False)
+def one_torch_thread():
+    """torch on one intra-op thread for the test: the reduced configs' ops
+    are tiny, and with several test workers sharing the cores the thread
+    pools of every worker only contend (a restart test took 100 s where it
+    takes 1 s alone).  Restored after the test."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)
@@ -152,6 +165,20 @@ def run_pair(arch: str, kw: dict, make_requests, cfg=None, mutate=None):
     if mutate is not None:
         mutate(params)
     port = ServingEngine(cfg, params, device="cpu", **kw)
+    ref_plans, port_plans = record_plans(ref), record_plans(port)
+    ref_reqs = ref.run(make_requests(JRequest))
+    port_reqs = port.run(make_requests(Request))
+    return ref, port, ref_reqs, port_reqs, ref_plans, port_plans
+
+
+def run_latent_pair(arch: str, kw: dict, make_requests):
+    """Serve ``make_requests(cls)`` through both engines with
+    ``packed=False`` (latent QAT serving) on the reference's latent params
+    (carried across, on the CPU).  Returns what :func:`run_pair` returns."""
+    cfg, latent = reference_latent(arch)
+    ref = JServingEngine(cfg, latent, packed=False, **kw)
+    params = bridge.params_from_reference(jax.tree.map(np.asarray, latent), device="cpu")
+    port = ServingEngine(cfg, params, device="cpu", packed=False, **kw)
     ref_plans, port_plans = record_plans(ref), record_plans(port)
     ref_reqs = ref.run(make_requests(JRequest))
     port_reqs = port.run(make_requests(Request))

@@ -101,13 +101,6 @@ def test_cuda_device_raises_without_gpu(ref_latent):
         ServingEngine(cfg, {}, device="cuda")
 
 
-@pytest.mark.parametrize("case", ["packed=False"])
-def test_unported_options_raise(case, ref_latent):
-    cfg, _ = ref_latent
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ServingEngine(cfg, {}, device="cpu", packed=False)
-
-
 def test_unknown_policy_raises(ref_latent):
     cfg, _ = ref_latent
     with pytest.raises(ValueError, match="policy"):

@@ -2,11 +2,14 @@
 """A/B of the serving engine's pure-decode step of two checkouts on one GPU.
 
     mkdir -p build/parent && git archive <rev> | tar -x -C build/parent
-    python3 tools/decode_ab.py build/parent [--new .] [--pairs 3] [--out build/decode_ab.json]
+    python3 tools/decode_ab.py build/parent [--new .] [--pairs 3] [--out build/decode_ab.json] \
+        [--arch bitnet-2b-4t | deepseek-moe-16b]
 
-Each checkout is driven through its own ``repro_torch`` package: full-width
-``bitnet-2b-4t`` (30 layers, random weights from generator seed 0, frozen
-with ``freeze_params``) served by ``ServingEngine`` with 4 slots,
+Each checkout is driven through its own ``repro_torch`` package: a
+full-width config (``bitnet-2b-4t`` by default: 30 layers; random weights
+from generator seed 0, frozen with ``freeze_params``; an MoE config's layers
+are drawn and frozen one at a time, as ``chip_smoke.py`` does, since its
+latent tree does not fit) served by ``ServingEngine`` with 4 slots,
 ``prefill_chunk`` 16, ``block_size`` 16 and ``max_len`` 256 under the
 default ``flat`` policy.  Four 8-token prompts are prefilled, then every
 slot decodes; a turn measures
@@ -37,21 +40,29 @@ WALL_STEPS = 20
 PROFILED_STEPS = 4
 
 
-def worker(root: Path) -> dict:
+def worker(root: Path, arch: str) -> dict:
     sys.path.insert(0, str(root / "src"))
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import repro_torch.configs as configs
-    from repro_torch.models import model_zoo
+    from repro_torch.models import model_zoo, transformer
     from repro_torch.serving import Request, ServingEngine, freeze_params
 
-    cfg = configs.get("bitnet-2b-4t")
+    cfg = configs.get(arch)
     dev = torch.device("cuda")
-    latents = model_zoo.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    params = freeze_params(latents)
-    del latents
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if cfg.is_moe:
+        blocks = [freeze_params(transformer.init_block(cfg, gen, dev))
+                  for _ in range(cfg.n_layers)]
+        params = {"blocks": transformer.stack_layers(blocks),
+                  **transformer.init_head(cfg, gen, dev)}
+        del blocks
+    else:
+        latents = model_zoo.init_params(cfg, gen, dev)
+        params = freeze_params(latents)
+        del latents
     engine = ServingEngine(cfg, params, max_len=256, batch_slots=4, prefill_chunk=16,
                            device=dev)
     engine.run([Request(uid=-1, prompt=np.arange(8, dtype=np.int32), max_new_tokens=2)])
@@ -88,14 +99,16 @@ def main() -> int:
     ap.add_argument("--new", type=Path, default=Path(__file__).resolve().parents[1])
     ap.add_argument("--pairs", type=int, default=3, help="alternating (old, new) pairs")
     ap.add_argument("--out", type=Path, default=None, help="write the results as JSON here")
+    ap.add_argument("--arch", default="bitnet-2b-4t",
+                    help="the full-width config served (a dense or MoE one)")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker is not None:
-        print(json.dumps(worker(args.worker.resolve())), flush=True)
+        print(json.dumps(worker(args.worker.resolve(), args.arch)), flush=True)
         return 0
     if args.old is None:
         ap.error("the earlier checkout's root is needed")
-    print(f"card: {card()}", flush=True)
+    print(f"card: {card()}; {args.arch}", flush=True)
     roots = {"old": args.old.resolve(), "new": args.new.resolve()}
     order = [name for i in range(args.pairs)
              for name in (("old", "new") if i % 2 == 0 else ("new", "old"))]
@@ -103,7 +116,7 @@ def main() -> int:
     print("turn version | decode ms/step median min max | device ms/step | aten ops/step | "
           "launches/step", flush=True)
     for i, name in enumerate(order):
-        r = turn(roots[name], __file__)
+        r = turn(roots[name], __file__, "--arch", args.arch)
         turns.append({"version": name, **r})
         w = r["wall_ms"]
         print(f"{i} {name} | {statistics.median(w):.2f} {min(w):.2f} {max(w):.2f} | "
@@ -116,7 +129,8 @@ def main() -> int:
               f"aten ops/step {statistics.mean(t['aten_ops'] for t in mine):.0f}", flush=True)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(json.dumps({"card": card(), "turns": turns}, indent=1))
+        args.out.write_text(json.dumps({"card": card(), "arch": args.arch, "turns": turns},
+                                       indent=1))
     return 0
 
 
