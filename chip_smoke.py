@@ -77,6 +77,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
    tokens skipped and fewer prefill tokens planned warm, ``kv.check()``
    and no block leaked, launch counts as the plan predicts; then a
    reduced-config step on the GPU agrees with the CPU within 1e-4;
+10a. observability phase: the tight-pool run again, twice, with an
+   ``EventTracer`` over a memory and a streaming sink (``build/obs/``), an
+   ``IncidentMonitor`` and a ``TextfileWriter``: greedy tokens and every
+   deterministic counter equal to the untraced tight run's, one structure
+   fingerprint for both runs (the memory document's equal to the finalized
+   stream's), ``validate``/``stream_to_perfetto``/``validate_incident``
+   pass, at least one ``preemption`` incident and as many ``preempted``
+   marks as preemptions, ``timeline.analyze`` counting the engine's steps
+   and planned/realized tokens, the textfile parsing to the registry's
+   counters; a last untraced run, so the p50 pure-decode step wall is read
+   in turns (untraced, traced, traced, untraced): the tracing cost; the
+   first traced document goes to ``chiprun_out/obs_tight_trace.json``;
+10b. profiler annotations: ``profiler_annotations=True`` under
+   ``torch.profiler`` over 4 pure-decode steps (after one the profiler's
+   schedule discards): exactly 4 ``tsar_engine_step#<n>`` ranges with 210
+   ``tsar_matmul`` kernels inside each; per step the device time of the
+   ops inside the range beside the tracer's step ``dur``: the device-busy
+   share of the model call;
+10c. the reduced config's tight-pool run traced on the card and on the CPU
+   (same params and requests): an identical structure fingerprint;
 11. block-sparse engine phase: the same model with a seeded half of every
    projection's (256, 256) blocks zeroed (block (0, 0) always): pools for
    all 7 projections, a plan of ``tsar_sparse_padded``, both launch counts
@@ -92,6 +112,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
    what the resolved kernels predict, the int8 family equal to the quantized
    oracle, the float family within rtol 1e-4 / atol 2e-3 of the dense
    product, bf16 in gives bf16 out;
+12a. conformance grid: the reference grid's shapes (4, 256, 256) and
+   (3, 300, 200) x live-block fractions 0, 1/3, 0.95, 1 at 128 x 128 tiles,
+   each case built on the card by the port's own encoders from a seeded
+   CUDA generator, through ``apply_frozen(plan=<kernel>)`` for all six
+   registry kernels with float32 and bf16 activations: the int8 family
+   ``torch.equal`` to the quantized oracle, the float family within rtol
+   1e-4 / atol 2e-3 (bf16 2e-2 / 2e-1), bf16 in gives bf16 out, each call
+   launching the kernel its plan names and no other;
 13. MoE phase: full-width ``deepseek-moe-16b`` (28 layers, 64 routed
    experts top-6 + 2 shared), drawn and frozen one layer at a time
    (generator seed 0), through ``flat`` twice, ``chunked`` and ``whole`` at
@@ -123,7 +151,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    self-attention, cross-attention with its K/V over the 1500 encoder rows,
    MLP) and 32 per decode step (the cross K/V come from the cache); a
    reduced config's whole prefill over numpy-seeded random frames + 4
-   decode steps on the card against the CPU within 1e-4;
+   decode steps on the card against the CPU within 1e-4; both runs carry an
+   ``EventTracer`` and give one structure fingerprint;
 17. VLM phase: full-width ``llava-next-mistral-7b`` (32 layers, 2880 zero
    patch positions before every prompt, ``max_len`` 3072), drawn and
    frozen one layer at a time, under ``whole``, twice: equal greedy tokens,
@@ -201,6 +230,8 @@ KERNEL_SOURCES = ("tsar_matmul", "tsar_sparse", "tsar_lut")
 COUNTER_OF = {"tsar_mxu": "tsar_matmul", "tsar_lut": "tsar_lut",
               "tsar_sparse": "tsar_sparse", "tsar_sparse_padded": "tsar_sparse_padded"}
 COUNTERS = ("tsar_matmul", "tsar_sparse_padded", "tsar_lut", "tsar_sparse")
+# The int8 family: exact against the quantized oracle.
+EXACT_KERNELS = ("tsar_mxu", "tsar_sparse", "tsar_sparse_padded")
 L2_BYTES = 50 * 2**20
 REPLAYS = 21
 # Row counts of the kernel phases: the flat policy's decode and prefill
@@ -902,7 +933,7 @@ def bitlinear_phase(torch, cfg) -> dict:
                 what = f"bitlinear N={n} plan={label} {name} ({kern})"
                 _require(y.dtype == torch.float32 and y.shape == exact[name].shape and
                          bool(torch.isfinite(y).all()), f"{what}: bad output")
-                if kern in ("tsar_mxu", "tsar_sparse", "tsar_sparse_padded"):
+                if kern in EXACT_KERNELS:
                     _require(torch.equal(y, exact[name]), f"{what} != quantized oracle")
                 else:
                     _require(torch.allclose(y, fp[name], rtol=1e-4, atol=2e-3),
@@ -920,9 +951,97 @@ def bitlinear_phase(torch, cfg) -> dict:
         y = bitlinear.apply_frozen(fz, xb, plan=kern)
         _require(y.dtype == torch.bfloat16 and bool(torch.isfinite(y).all()),
                  f"bf16 through {kern}: {y.dtype}")
-        _require(kern not in ("tsar_mxu", "tsar_sparse", "tsar_sparse_padded")
+        _require(kern not in EXACT_KERNELS
                  or torch.equal(y, want), f"bf16 through {kern} != quantized oracle")
     print("bitlinear: bf16 activations return bf16 through all six kernels", flush=True)
+    return {"launches": totals}
+
+
+# The reference's conformance grid (tests/test_conformance.py): (n, k, m)
+# shapes, one block-aligned and one ragged; live-block fractions; tiles.
+GRID_SHAPES = ((4, 256, 256), (3, 300, 200))
+GRID_DENSITIES = (0.0, 1.0 / 3.0, 0.95, 1.0)
+GRID_BLOCK = 128
+
+
+def grid_case(torch, shape: tuple, density: float):
+    """One grid case on the card: a frozen layer carrying every kernel's
+    encoding (planes, LUT indices at c = 4, compacted and padded pools at
+    ``GRID_BLOCK`` tiles) built with the port's own encoders, its ternary
+    matrix and an activation, all from a CUDA generator seeded by the
+    reference's rule."""
+    from repro_torch.core import bitlinear, ternary
+    from repro_torch.sparse import format as sparse_format
+
+    n, k, m = shape
+    seed = int(n * 1009 + k * 13 + m * 7 + density * 997)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t = sparse_format.random_block_sparse_ternary(gen, (k, m), bk=GRID_BLOCK, bm=GRID_BLOCK,
+                                                  p_zero_block=1.0 - density)
+    scale = 0.25 + 1.75 * torch.rand((m,), generator=gen, device="cuda")
+    idx_pos, idx_zero = ternary.pack_indices(t, 4)
+    fz = bitlinear.FrozenBitLinear(
+        packed=ternary.pack(t.to(torch.float32), scale), idx_pos=idx_pos, idx_zero=idx_zero,
+        c=4, sparse=sparse_format.from_ternary(t, scale, bk=GRID_BLOCK, bm=GRID_BLOCK),
+        padded=sparse_format.pad_from_ternary(t, scale, bk=GRID_BLOCK, bm=GRID_BLOCK),
+        density=float(ternary.ternary_density(t)), block_density=None)
+    x = torch.randn((n, k), generator=gen, device="cuda")
+    return fz, t, x
+
+
+def grid_phase(torch) -> dict:
+    """The conformance grid on the card: ``GRID_SHAPES`` x ``GRID_DENSITIES``
+    (:func:`grid_case`) through ``apply_frozen(plan=<kernel>)`` for all six
+    registry kernels, float32 and bf16 activations.  The int8 family is
+    ``torch.equal`` to ``ref.quantized_matmul_ref`` (bf16: through the same
+    casts), the float family within rtol 1e-4 / atol 2e-3 of
+    ``ref.ternary_matmul_ref`` (bf16: rtol 2e-2 / atol 2e-1), bf16 in gives
+    bf16 out, and each call launches the kernel its plan names and no other
+    (``memory_lut`` and ``dense`` none)."""
+    from repro_torch.core import bitlinear
+    from repro_torch.kernels import ref
+    from repro_torch.plan import registry
+
+    totals = dict.fromkeys(COUNTERS, 0)
+    worst = {}
+    for shape in GRID_SHAPES:
+        for density in GRID_DENSITIES:
+            fz, t, x = grid_case(torch, shape, density)
+            _require(registry.available(fz) == registry.names(),
+                     f"grid {shape} @ {density:.3g}: encodings for {registry.available(fz)}")
+            for xin in (x, x.to(torch.bfloat16)):
+                bf16 = xin.dtype == torch.bfloat16
+                exact = ref.quantized_matmul_ref(xin, fz.packed).to(xin.dtype)
+                fp = ref.ternary_matmul_ref(xin, t, fz.packed.scale)
+                rtol, atol = (2e-2, 2e-1) if bf16 else (1e-4, 2e-3)
+                for kern in registry.names():
+                    what = f"grid {shape} @ {density:.3g} {xin.dtype} plan={kern}"
+                    want = dict.fromkeys(COUNTERS, 0)
+                    if kern in COUNTER_OF:
+                        want[COUNTER_OF[kern]] = 1
+                    zero_launch_counts()
+                    y = bitlinear.apply_frozen(fz, xin, plan=kern)
+                    torch.cuda.synchronize()
+                    got = launch_counts()
+                    _require(got == want, f"{what}: launches {got}, the plan names {want}")
+                    for key in COUNTERS:
+                        totals[key] += got[key]
+                    _require(y.dtype == xin.dtype and y.shape == (shape[0], shape[2])
+                             and bool(torch.isfinite(y).all()),
+                             f"{what}: {y.dtype} {tuple(y.shape)}")
+                    if kern in EXACT_KERNELS:
+                        _require(torch.equal(y, exact), f"{what} != quantized oracle")
+                    else:
+                        err = (y.to(torch.float32) - fp).abs().max().item()
+                        key = f"{kern} {'bf16' if bf16 else 'f32'}"
+                        worst[key] = max(worst.get(key, 0.0), err)
+                        _require(torch.allclose(y.to(torch.float32), fp, rtol=rtol, atol=atol),
+                                 f"{what} != fp oracle (max err {err})")
+    n_cases = len(GRID_SHAPES) * len(GRID_DENSITIES)
+    print(f"grid: {n_cases} cases x 6 kernels x (float32, bf16) on the card: int8 family "
+          f"equal to the quantized oracle, float family within rtol 1e-4/atol 2e-3 (bf16 "
+          f"2e-2/2e-1; max errors {({k: float(f'{v:.3g}') for k, v in worst.items()})}), "
+          f"every call launched the kernel its plan names and no other {totals}", flush=True)
     return {"launches": totals}
 
 
@@ -1007,13 +1126,34 @@ def predicted_launches(engine, widths: list, whole_prefills: int = 0) -> dict:
     return want
 
 
+# The engine's deterministic counters: stats keys, scheduler fields and
+# registry counters (the prefix-cache keys where the cache is on).
+STATS_COUNTERS = ("steps", "prefill_tokens", "decode_tokens", "total_tokens",
+                  "peak_kv_blocks", "max_step_tokens", "preemptions", "whole_prefills",
+                  "rejections", "prefix_hit_rate", "cached_blocks", "prefix_hit_tokens",
+                  "prefix_lookups", "prefix_evictions")
+SCHED_COUNTERS = ("prefill_tokens_planned", "cached_tokens_skipped", "readmissions")
+REGISTRY_COUNTERS = ("planned_tokens", "realized_tokens", "prefill_steps", "decode_steps",
+                     "admissions")
+
+
+def engine_counters(engine) -> dict:
+    """Every deterministic counter of ``engine``'s run."""
+    out = {k: engine.stats[k] for k in STATS_COUNTERS if k in engine.stats}
+    out.update({k: getattr(engine.sched, k) for k in SCHED_COUNTERS})
+    out.update({k: engine.metrics.get(k).value for k in REGISTRY_COUNTERS})
+    return out
+
+
 def run_path(torch, engine, reqs, label: str) -> dict:
     """Serve ``reqs`` as one path: launch counts zeroed just before, read
     just after and held against the plan's prediction for the row counts
     of every model call the run made; every sampled logit row checked
     finite (and kept, for :func:`same_tokens`); every request must finish
-    with its ``max_new_tokens`` tokens in ``[0, vocab)``."""
-    widths, finite, rows, last = [], [], {}, {}
+    with its ``max_new_tokens`` tokens in ``[0, vocab)``.  The wall time of
+    every pure-decode ``engine.step()`` (tracer emission included) and the
+    engine's deterministic counters come back with the tokens."""
+    widths, finite, rows, last, decode_wall = [], [], {}, {}, []
     sched = engine.sched
     plan_flat, plan_rect = sched.plan_flat, sched.plan
     sample, emit, prefill_slot = engine._sample, engine._emit_token, engine._prefill_slot
@@ -1044,9 +1184,18 @@ def run_path(torch, engine, reqs, label: str) -> dict:
         rows[(st.req.uid, len(st.req.out_tokens))] = logits[i if len(logits) > 1 else 0].clone()
         return emit(i, st, tok)
 
+    step, c_decode = engine.step, engine.metrics.get("decode_steps")
+
+    def timed_step():
+        d0, t = c_decode.value, time.perf_counter()
+        out = step()
+        if c_decode.value > d0:
+            decode_wall.append(time.perf_counter() - t)
+        return out
+
     sched.plan_flat, sched.plan = recording_plan_flat, recording_plan
     engine._sample, engine._emit_token = checked_sample, recording_emit
-    engine._prefill_slot = recording_prefill_slot
+    engine._prefill_slot, engine.step = recording_prefill_slot, timed_step
     zero_launch_counts()
     t0 = time.perf_counter()
     engine.run(reqs)
@@ -1071,7 +1220,8 @@ def run_path(torch, engine, reqs, label: str) -> dict:
            "widths": sorted(set(widths)), "wall": wall,
            "decode_ms": engine.stats["decode_s"] / max(1, decode_steps) * 1e3,
            "prefill_ms": engine.stats["prefill_s"] / max(1, prefill_calls) * 1e3,
-           "ttft_ms": pct["ttft_s"]["p50"] * 1e3, "tpot_ms": pct["tpot_s"]["p50"] * 1e3}
+           "ttft_ms": pct["ttft_s"]["p50"] * 1e3, "tpot_ms": pct["tpot_s"]["p50"] * 1e3,
+           "decode_step_ms": [s * 1e3 for s in decode_wall], "counters": engine_counters(engine)}
     print(f"{label}: {len(reqs)} requests, {engine.stats['steps']} steps "
           f"({engine.metrics.get('prefill_steps').value} with prefill, "
           f"{engine.stats['whole_prefills']} whole prefills), "
@@ -1339,6 +1489,215 @@ def prefix_phase(torch, cfg, params) -> dict:
         f"decode {runs[label]['decode_ms']:.2f} ms/step, TTFT p50 "
         f"{runs[label]['ttft_ms']:.1f} ms" for label, eng in engines.items()), flush=True)
     return runs
+
+
+OBS_DIR = ROOT / "build" / "obs"
+
+
+def _p50(xs: list) -> float:
+    return statistics.median(xs) if xs else float("nan")
+
+
+def obs_phase(torch, cfg, params, untraced: dict) -> dict:
+    """The prefix phase's tight configuration (8 shared-prefix requests, a
+    27-block pool that preempts, the prefix cache on) recorded, twice: an
+    ``EventTracer`` over a memory and a streaming sink, an
+    ``IncidentMonitor`` and a ``TextfileWriter`` on the engine.  Recording
+    must change no token and no counter of the untraced tight run; the two
+    runs give one structure fingerprint, and the memory document's equals
+    the finalized stream's; the document, the stream and every incident
+    file validate, at least one ``preemption`` incident fires and the
+    ``preempted`` marks count the engine's preemptions; the timeline counts
+    the engine's steps and planned and realized tokens; the textfile parses
+    to the registry's counters.  One more untraced run follows, so the
+    tracing cost is read in turns (untraced, traced, traced, untraced): the
+    p50 wall time of a pure-decode ``engine.step()``."""
+    import shutil
+
+    from repro_torch.obs import export, incident, timeline, trace
+    from repro_torch.serving import Request
+
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    OBS_DIR.mkdir(parents=True)
+    traced, fps = [], []
+    for i in range(2):
+        stream = trace.StreamingSink(OBS_DIR / f"trace{i}.jsonl")
+        tracer = trace.EventTracer(sink=trace.TeeSink(trace.MemorySink(), stream))
+        monitor = incident.IncidentMonitor(str(OBS_DIR / f"incidents{i}"))
+        engine = dense_engine(torch, cfg, params, prefix_cache=True, kv_blocks=TIGHT_KV_BLOCKS,
+                              tracer=tracer, incidents=monitor)
+        engine.warmup(seq_len=160)
+        writer = export.TextfileWriter(engine.metrics, str(OBS_DIR / f"metrics{i}.prom"),
+                                       interval_s=0.5).start()
+        try:
+            run = run_path(torch, engine, prefix_requests(Request, cfg), f"obs traced run {i + 1}")
+        finally:
+            writer.stop()
+        label = f"obs traced run {i + 1}"
+        same_tokens(torch, untraced, run, f"untraced tight run vs {label}")
+        _require(run["counters"] == untraced["counters"],
+                 f"{label}: counters {run['counters']} != untraced {untraced['counters']}")
+        info = stream.finalize()
+        doc = trace.validate(tracer.to_perfetto())
+        fp = doc["otherData"]["fingerprint"]
+        streamed = trace.stream_to_perfetto(info["path"])
+        _require(info["fingerprint"] == fp == streamed["otherData"]["fingerprint"]
+                 and len(streamed["traceEvents"]) == len(doc["traceEvents"]),
+                 f"{label}: stream {info['fingerprint']} != document {fp}")
+        for path in monitor.paths:
+            incident.load_incident(path)
+        fired = monitor.summary()["by_trigger"]
+        _require(fired.get("preemption", 0) >= 1, f"{label}: no preemption incident ({fired})")
+        events = tracer.events
+        marks = sum(e["ph"] == "n" and e["name"] == "preempted" for e in events)
+        c = run["counters"]
+        _require(marks == c["preemptions"] > 0,
+                 f"{label}: {marks} preempted marks, {c['preemptions']} preemptions")
+        s = timeline.analyze(doc)["steps"]
+        _require((s["n"], s["planned_tokens"], s["realized_tokens"])
+                 == (c["steps"], c["planned_tokens"], c["realized_tokens"]),
+                 f"{label}: timeline steps {s} against counters {c}")
+        text = (OBS_DIR / f"metrics{i}.prom").read_text()
+        samples = export.parse_samples(text)
+        _require(samples == export.parse_samples(export.render(engine.metrics)) and all(
+            samples[f"tsar_{k}"] == c[k] for k in ("steps", "preemptions", "admissions",
+                                                   "planned_tokens", "realized_tokens")),
+                 f"{label}: the textfile disagrees with the registry")
+        fps.append(fp)
+        stream_bytes = sum(os.path.getsize(p) for p in trace.stream_segments(info["path"]))
+        traced.append({"run": run, "events": len(events), "stream_bytes": stream_bytes,
+                       "segments": info["segments"], "incidents": fired,
+                       "suppressed": monitor.suppressed, "writes": writer.n_writes})
+        if i == 0:
+            (ROOT / "chiprun_out").mkdir(exist_ok=True)
+            trace.save_doc(doc, str(ROOT / "chiprun_out" / "obs_tight_trace.json"))
+        del engine, tracer
+    _require(fps[0] == fps[1], f"obs: traced runs fingerprint {fps[0]} and {fps[1]}")
+    engine = dense_engine(torch, cfg, params, prefix_cache=True, kv_blocks=TIGHT_KV_BLOCKS)
+    engine.warmup(seq_len=160)
+    after = run_path(torch, engine, prefix_requests(Request, cfg), "obs untraced run")
+    same_tokens(torch, untraced, after, "untraced tight runs")
+    plain = [_p50(r["decode_step_ms"]) for r in (untraced, after)]
+    rec = [_p50(t["run"]["decode_step_ms"]) for t in traced]
+    cost = statistics.mean(rec) - statistics.mean(plain)
+    t0 = traced[0]
+    print(f"obs: tight run traced twice, tokens and {len(untraced['counters'])} counters equal "
+          f"to the untraced run's, one fingerprint {fps[0][:23]}... (memory = stream), "
+          f"{t0['events']} events, stream {t0['stream_bytes']} bytes in {t0['segments']} "
+          f"segment(s), incidents {t0['incidents']} ({t0['suppressed']} debounced), "
+          f"{t0['writes']} textfile writes | p50 pure-decode step in turns: untraced "
+          f"{plain[0]:.2f}, traced {rec[0]:.2f}, traced {rec[1]:.2f}, untraced {plain[1]:.2f} "
+          f"ms -> tracing cost {cost:+.2f} ms/step ({cost / statistics.mean(plain):+.1%}) over "
+          f"{len(t0['run']['decode_step_ms'])} decode steps per run | {gpu_line()}", flush=True)
+    return {"fingerprint": fps[0], "cost_ms": cost}
+
+
+def annotation_phase(torch, cfg, params) -> dict:
+    """``profiler_annotations=True`` under ``torch.profiler`` over 4
+    pure-decode steps (4 slots busy, as :func:`profile_decode` sets them
+    up), after one step that the profiler's schedule records and discards
+    (device tracing starts there): exactly 4 ``tsar_engine_step#<n>``
+    ranges, 4 x 210 ``tsar_matmul`` kernels in the window and 210 launched
+    inside each range.  Per step: the range's host time, the device time of
+    the ops launched inside it, and the tracer's step ``dur`` (the same
+    model call), so the device-busy share of the call comes from one run."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.obs import trace
+    from repro_torch.serving import Request
+
+    tracer = trace.EventTracer()
+    engine = dense_engine(torch, cfg, params, tracer=tracer, profiler_annotations=True)
+    for i in range(4):
+        engine.submit(Request(uid=i, prompt=np.arange(8, dtype=np.int32) + i,
+                              max_new_tokens=32))
+    while any(s is None or s.prefilling for s in engine._slots):
+        engine.step()
+    engine.step()
+    torch.cuda.synchronize()
+    held = {}
+
+    def keep(prof):
+        held["events"] = list(prof.events())
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=4, repeat=1),
+                 on_trace_ready=keep) as prof:
+        for _ in range(5):
+            engine.step()
+            prof.step()
+    _require("events" in held, "annotations: the profiler's schedule saved no trace")
+    cuda = torch.autograd.DeviceType.CUDA
+    events = held["events"]
+    host = [e for e in events if e.device_type != cuda]
+    ranges = sorted((e for e in host if e.name.startswith(trace.STEP_RANGE + "#")),
+                    key=lambda e: e.time_range.start)
+    marks = (trace.STEP_RANGE, "ProfilerStep")    # the ranges' own device spans
+    ops = [e for e in events if e.device_type == cuda and not e.name.startswith(marks)]
+    kernels = [e for e in ops if "tsar_matmul_kernel" in e.name]
+    per_step = 7 * cfg.n_layers
+    _require(len(ranges) == 4, f"annotations: {len(ranges)} {trace.STEP_RANGE} ranges, not 4: "
+             f"{[e.name for e in ranges]}")
+    _require(len(kernels) == 4 * per_step,
+             f"annotations: {len(kernels)} tsar_matmul kernels, not 4 x {per_step}")
+    records = {e["args"]["step"]: e for e in tracer.events if e["ph"] == "X"}
+    # A device op belongs to the range whose host span holds the runtime call
+    # that launched it (cudaLaunchKernel, cudaMemcpyAsync, ...: the same
+    # correlation id), not the range that holds its own timestamp: within one
+    # window the device clock drifted up to 17 ms from the host's (torch
+    # 2.11), so by timestamps a step's kernels fell into its neighbour.
+    runtime = {e.id: e for e in host if e.name.startswith("cu")}
+    _require(all(e.id in runtime for e in kernels),
+             "annotations: a tsar_matmul kernel has no runtime call of its correlation id")
+    rows = []
+    for r in ranges:
+        n = int(r.name.split("#")[1])
+        inside = [e for e in ops if e.id in runtime
+                  and r.time_range.start <= runtime[e.id].time_range.start < r.time_range.end]
+        k = sum("tsar_matmul_kernel" in e.name for e in inside)
+        _require(k == per_step, f"annotations: step {n} range launched {k} tsar_matmul kernels")
+        _require(n in records and records[n]["args"]["prefill_tokens"] == 0,
+                 f"annotations: step {n} has no pure-decode step record")
+        busy = sum(e.time_range.elapsed_us() for e in inside)
+        rows.append((n, r.time_range.elapsed_us(), busy, records[n]["dur"], len(inside)))
+    for n, host_us, busy, d, n_ops in rows:
+        print(f"  annotated step {n}: range {host_us / 1e3:.3f} ms host, device ops launched "
+              f"inside {busy / 1e3:.3f} ms ({n_ops} ops, {per_step} tsar_matmul), tracer dur "
+              f"{d / 1e3:.3f} ms -> device-busy share {busy / d:.1%}", flush=True)
+    share = sum(b for _, _, b, _, _ in rows) / sum(d for _, _, _, d, _ in rows)
+    print(f"annotations: 4 {trace.STEP_RANGE} ranges, {len(kernels)} tsar_matmul kernels "
+          f"(4 x {per_step}) | device-busy share of the annotated model calls {share:.1%} "
+          f"(profiler on: its host cost is in the dur) | {gpu_line()}", flush=True)
+    return {"busy_share": share}
+
+
+def obs_agreement(torch, cfg_full) -> None:
+    """Reduced config: the tight prefix traffic traced on the card and on
+    the CPU, same params and requests: an identical structure fingerprint."""
+    from repro_torch.models import model_zoo
+    from repro_torch.obs import trace
+    from repro_torch.serving import Request, ServingEngine, freeze_params
+
+    cfg = cfg_full.reduced()
+    params_cpu = freeze_params(model_zoo.init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu"))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tracer = trace.EventTracer()
+        engine = ServingEngine(cfg, _to(torch, params_cpu, dev), max_len=256, batch_slots=4,
+                               prefill_chunk=16, prefix_cache=True, kv_blocks=TIGHT_KV_BLOCKS,
+                               tracer=tracer, device=torch.device(dev))
+        reqs = engine.run(prefix_requests(Request, cfg))
+        out[dev] = (trace.structure_fingerprint(tracer.events), len(tracer.events),
+                    engine.stats["preemptions"], [r.out_tokens for r in reqs])
+    cpu, card = out["cpu"], out["cuda"]
+    _require(card[2] > 0, f"reduced {cfg.name}: the tight pool did not preempt")
+    _require(card[0] == cpu[0], f"reduced {cfg.name} traced run: card fingerprint {card[0]} "
+             f"({card[1]} events) != CPU {cpu[0]} ({cpu[1]} events); tokens equal: "
+             f"{card[3] == cpu[3]}")
+    print(f"reduced {cfg.name} tight prefix run traced on the card and the CPU: one structure "
+          f"fingerprint {card[0][:23]}... ({card[1]} events, {card[2]} preemptions)", flush=True)
 
 
 def sparse_engine_phase(torch, cfg) -> dict:
@@ -1730,13 +2089,16 @@ def moe_phase(torch, cfg) -> dict:
 
 
 def whole_phase(torch, cfg, per_step: int, per_prefill: int, by_block: bool = True,
-                max_len: int = 256) -> dict:
+                max_len: int = 256, traced: bool = False) -> dict:
     """Full-width serving under ``whole`` (the SSM, hybrid, enc-dec and VLM
     families), twice: equal greedy tokens, ``tsar_matmul`` launches
     per_step per decode step plus per_prefill per whole prefill, the
     wrapper's pad copies counted, the phase's peak device memory; then the
-    reduced config against the CPU."""
+    reduced config against the CPU.  ``traced`` attaches an
+    ``EventTracer`` to both runs, whose structure fingerprints must be
+    equal."""
     from repro_torch.kernels import tsar_matmul as tm
+    from repro_torch.obs import trace
     from repro_torch.serving import Request
 
     label = cfg.family
@@ -1755,11 +2117,15 @@ def whole_phase(torch, cfg, per_step: int, per_prefill: int, by_block: bool = Tr
     tm.pad_for_tma = counting_pad
     try:
         for i in range(2):
+            tracer = trace.EventTracer() if traced else None
             engine = dense_engine(torch, cfg, params, max_len=max_len,
-                                  profile_density=i == 0)
+                                  profile_density=i == 0, tracer=tracer)
             _require(engine.policy == "whole", f"{label}: policy {engine.policy}")
             copies.clear()
             run = run_path(torch, engine, make_requests(Request, cfg), f"{label} whole run {i + 1}")
+            if traced:
+                run["fingerprint"] = trace.structure_fingerprint(tracer.events)
+                run["events"] = len(tracer.events)
             # Decode steps run 4 rows (4 slots x 1); prompts are 16-128 rows.
             run["pad_copies"] = sum(copies.values())
             run["pad_copies_per_step"] = copies.get(engine.slots, 0) / run["steps"]
@@ -1775,6 +2141,12 @@ def whole_phase(torch, cfg, per_step: int, per_prefill: int, by_block: bool = Tr
     peak = torch.cuda.max_memory_allocated() / 2**30
     same_tokens(torch, runs[0], runs[1], f"{label} whole run 1 vs run 2")
     r = runs[0]
+    if traced:
+        _require(runs[0]["fingerprint"] == runs[1]["fingerprint"],
+                 f"{label}: traced whole runs fingerprint {runs[0]['fingerprint']} and "
+                 f"{runs[1]['fingerprint']}")
+        print(f"{label}: both whole runs traced, one structure fingerprint "
+              f"{r['fingerprint'][:23]}... ({r['events']} events)", flush=True)
     print(f"{label}: {cfg.name} tokens equal across two runs | launches {per_step}/decode "
           f"step + {per_prefill}/whole prefill | the wrapper's pad copies: "
           f"{r['pad_copies']} over {r['launches']['tsar_matmul']} launches, "
@@ -2095,11 +2467,18 @@ def main() -> int:
     flat_run = engine_phase(torch, cfg, params, profile=args.profile)
     launches = flat_run["launches"]["tsar_matmul"]
     policy_phase(torch, cfg, params, flat_run)
-    prefix_phase(torch, cfg, params)
-    del params, flat_run
+    prefix_runs = prefix_phase(torch, cfg, params)
+    # 10a-10c. observability: the tight prefix run recorded, the step
+    # annotations under torch.profiler, a reduced traced run card vs CPU
+    obs_phase(torch, cfg, params, prefix_runs["warm, tight pool"])
+    annotation_phase(torch, cfg, params)
+    del params, flat_run, prefix_runs
     cpu_agreement(torch, cfg)
+    obs_agreement(torch, cfg)
     sparse_launches = sparse_engine_phase(torch, cfg)["launches"]
     bl_launches = bitlinear_phase(torch, cfg)["launches"]
+    # 12a. the conformance grid through apply_frozen on the card
+    grid_phase(torch)
     # 13-15. the MoE, SSM and hybrid families' serving paths at full width
     moe_cfg, ssm_cfg, hybrid_cfg = family_cfgs
     moe_phase(torch, moe_cfg)
@@ -2114,7 +2493,7 @@ def main() -> int:
     per_layer = len(step_shapes(encdec_cfg))                  # 4 attention + 2 MLP
     whole_phase(torch, encdec_cfg, per_step=(per_layer + 2) * encdec_cfg.n_layers,
                 per_prefill=per_layer * encdec_cfg.n_enc_layers
-                + (per_layer + 4) * encdec_cfg.n_layers, by_block=False)
+                + (per_layer + 4) * encdec_cfg.n_layers, by_block=False, traced=True)
     per_layer = len(step_shapes(vlm_cfg))
     whole_phase(torch, vlm_cfg, per_step=per_layer * vlm_cfg.n_layers,
                 per_prefill=per_layer * vlm_cfg.n_layers,

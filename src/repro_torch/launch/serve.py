@@ -17,22 +17,134 @@ format) or saves the compiled one there, ``--save-plan`` also writes it,
 [CAPACITY_BLOCKS]`` turns on prefix-caching KV reuse (the value caps the
 cached blocks).  ``--no-packed`` serves the latent weights as they are
 (QAT serving: the exact int8 pipeline, no freeze, no plan, no kernel).
+
+Observability flags (all composable; the files are the reference's
+formats, read by either package's ``obs`` modules):
+
+* ``--trace-out PATH``     — record the run and save a Perfetto
+  ``trace_event`` document; analyze with ``python -m
+  repro_torch.obs.timeline PATH``.
+* ``--trace-stream PATH``  — stream the events to a rotated JSONL file with
+  bounded memory (``obs.trace.StreamingSink``); the same CLI reads it.
+* ``--profile-steps``      — wrap each engine step's model call in a
+  ``tsar_engine_step#<n>`` range and run the serving loop under
+  ``torch.profiler``; its Chrome trace goes beside ``--trace-out``
+  (``<stem>.torch.json``), which it needs.
+* ``--incident-dir DIR``   — arm incident snapshots (SLO breach,
+  preemption, rejection, kv pressure, eviction storm); without another
+  trace flag a ring-buffer tracer is attached for their recent events.
+* ``--metrics-port PORT``  — Prometheus scrape endpoint over the live
+  registry on 127.0.0.1 (``/metrics``, ``/metrics.json``; 0 = ephemeral).
+* ``--metrics-textfile PATH`` — rewrite a Prometheus textfile every
+  ``--metrics-interval`` seconds, and once at the end.
+
+``--workload``, ``--trace-file`` and ``--seed`` of the reference's ``serve.py``
+are not ported: they replay the reference's benchmark workloads.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
+import sys
+from pathlib import Path
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import repro_torch.configs as configs
 from repro_torch.device import resolve_device
 from repro_torch.models import model_zoo as zoo
+from repro_torch.obs import export as obs_export
+from repro_torch.obs.incident import IncidentMonitor
+from repro_torch.obs.trace import (STEP_RANGE, EventTracer, MemorySink, RingSink,
+                                   StreamingSink, TeeSink)
 from repro_torch.plan import ModelPlan, format_plan
 from repro_torch.serving import Request, ServingEngine, freeze_params
 
 _SPARSE = {"auto": "auto", "true": True, "false": False}
+
+
+def _print_percentiles(engine) -> None:
+    pct = engine.latency_percentiles()
+    t, p = pct["ttft_s"], pct["tpot_s"]
+    print(f"TTFT p50/p90/p99 {t['p50'] * 1e3:.0f}/{t['p90'] * 1e3:.0f}/"
+          f"{t['p99'] * 1e3:.0f}ms | TPOT p50/p99 {p['p50'] * 1e3:.2f}/"
+          f"{p['p99'] * 1e3:.2f}ms | "
+          f"queue p99 {pct['queue_s']['p99'] * 1e3:.0f}ms | "
+          f"policy={engine.policy}")
+
+
+def _save_trace(tracer, path: str) -> None:
+    doc = tracer.save(path)
+    print(f"obs trace: {path} ({len(doc['traceEvents'])} events, "
+          f"{doc['otherData']['fingerprint'][:23]}…) — analyze with "
+          f"python -m repro_torch.obs.timeline {path}", file=sys.stderr)
+
+
+def _obs_setup(args) -> dict:
+    """Build the tracer (sinks as the flags compose them) and the incident
+    monitor; returns the state the start and finish helpers pass on."""
+    sinks, stream = [], None
+    if args.trace_out:
+        sinks.append(MemorySink())
+    if args.trace_stream:
+        stream = StreamingSink(args.trace_stream)
+        sinks.append(stream)
+    if not sinks and args.incident_dir:
+        # Flight recorder: incidents need some recent-event source, and a
+        # ring is cheap enough to attach implicitly.
+        sinks.append(RingSink())
+    tracer = None
+    if sinks:
+        tracer = EventTracer(sink=sinks[0] if len(sinks) == 1 else TeeSink(*sinks))
+    monitor = IncidentMonitor(args.incident_dir) if args.incident_dir else None
+    return {"tracer": tracer, "stream": stream, "monitor": monitor,
+            "server": None, "textfile": None}
+
+
+def _obs_start(args, engine, obs: dict) -> None:
+    """Bring up the export surface once the engine (and its registry)
+    exists."""
+    if args.metrics_port is not None:
+        obs["server"] = obs_export.start_server(engine.metrics, port=args.metrics_port)
+        print(f"metrics: scrape endpoint at {obs['server'].url} "
+              f"(and /metrics.json)", file=sys.stderr)
+    if args.metrics_textfile:
+        obs["textfile"] = obs_export.TextfileWriter(
+            engine.metrics, args.metrics_textfile,
+            interval_s=args.metrics_interval).start()
+
+
+def _obs_finish(args, obs: dict) -> None:
+    """Flush and close every telemetry surface at the end of a run."""
+    if obs["textfile"] is not None:
+        obs["textfile"].stop()
+        print(f"metrics: textfile {args.metrics_textfile} "
+              f"({obs['textfile'].n_writes} writes)", file=sys.stderr)
+    if obs["server"] is not None:
+        obs["server"].stop()
+    if obs["tracer"] is not None and args.trace_out:
+        _save_trace(obs["tracer"], args.trace_out)
+    if obs["stream"] is not None:
+        info = obs["stream"].finalize()
+        print(f"obs stream: {info['path']} ({info['n_events']} events, "
+              f"{info['segments']} segment(s), "
+              f"{info['fingerprint'][:23]}…) — analyze with "
+              f"python -m repro_torch.obs.timeline {info['path']}", file=sys.stderr)
+    mon = obs["monitor"]
+    if mon is not None:
+        s = mon.summary()
+        if s["n"]:
+            by = ", ".join(f"{k}: {v}" for k, v in sorted(s["by_trigger"].items()))
+            print(f"incidents: {s['n']} snapshot(s) in {args.incident_dir} "
+                  f"({by}; {s['suppressed']} debounced)", file=sys.stderr)
+        else:
+            print(f"incidents: none fired ({s['suppressed']} debounced)",
+                  file=sys.stderr)
+
+
 
 
 def main(argv=None):
@@ -63,9 +175,34 @@ def main(argv=None):
                     type=int, metavar="CAPACITY_BLOCKS",
                     help="enable prefix-caching KV reuse; optional value "
                          "caps the cached-block footprint (LRU-evicted)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="record the run and save a Perfetto trace_event JSON "
+                         "document (python -m repro_torch.obs.timeline PATH)")
+    ap.add_argument("--profile-steps", action="store_true",
+                    help="mark each engine step as a torch.profiler range, run "
+                         "under torch.profiler and write its Chrome trace beside "
+                         "--trace-out (<stem>.torch.json)")
+    ap.add_argument("--trace-stream", default=None, metavar="PATH",
+                    help="stream trace events to a rotated JSONL file (bounded "
+                         "memory; OBS_TRACE_STREAM schema v1); the same timeline "
+                         "CLI analyzes it")
+    ap.add_argument("--incident-dir", default=None, metavar="DIR",
+                    help="write incident snapshots (ring buffer + metrics "
+                         "snapshot) here when SLO/preemption/rejection/"
+                         "kv-pressure/eviction-storm triggers fire")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                    help="serve Prometheus text exposition at "
+                         "http://127.0.0.1:PORT/metrics (0 = ephemeral)")
+    ap.add_argument("--metrics-textfile", default=None, metavar="PATH",
+                    help="periodically rewrite a Prometheus textfile "
+                         "(atomic replace) for scrape-less environments")
+    ap.add_argument("--metrics-interval", type=float, default=5.0, metavar="SECONDS",
+                    help="rewrite interval for --metrics-textfile")
     args = ap.parse_args(argv)
     if args.no_packed and (args.plan_file or args.save_plan or args.print_plan):
         ap.error("--no-packed serves without an execution plan")
+    if args.profile_steps and not args.trace_out:
+        ap.error("--profile-steps writes its trace beside --trace-out")
 
     dev = resolve_device(args.device)
     cfg = configs.get(args.arch)
@@ -85,9 +222,13 @@ def main(argv=None):
         print(f"plan: loaded {args.plan_file} ({len(plan.layers)} layers, "
               f"buckets {list(plan.buckets)})")
     max_len = args.max_len or 128 + (cfg.frontend_seq if cfg.family == "vlm" else 0)
+    obs = _obs_setup(args)
     engine = ServingEngine(cfg, params, max_len=max_len,
                            batch_slots=args.slots, plan=plan, packed=not args.no_packed,
-                           prefix_cache=args.prefix_cache, device=dev)
+                           prefix_cache=args.prefix_cache, tracer=obs["tracer"],
+                           incidents=obs["monitor"], profiler_annotations=args.profile_steps,
+                           device=dev)
+    _obs_start(args, engine, obs)
     if plan is None and args.plan_file:
         engine.plan.save(args.plan_file)
         print(f"plan: compiled and saved to {args.plan_file}")
@@ -103,22 +244,34 @@ def main(argv=None):
     reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, size=4 + i % 8),
                     max_new_tokens=args.max_new)
             for i in range(args.requests)]
-    engine.run(reqs)
+    prof = contextlib.nullcontext()
+    if args.profile_steps:
+        # The loop under torch.profiler: host ops, and the card's kernels on
+        # a CUDA device; the Chrome trace goes beside --trace-out.
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        prof = profile(activities=acts)
+    with prof:
+        engine.run(reqs)
+    if args.profile_steps:
+        out = Path(args.trace_out)
+        path = str(out.with_name(out.stem + ".torch.json"))
+        prof.export_chrome_trace(path)
+        n = sum(e.name.startswith(STEP_RANGE) for e in prof.events())
+        print(f"torch.profiler: {path} ({n} {STEP_RANGE} ranges over "
+              f"{engine.stats['steps']} steps)", file=sys.stderr)
     for r in reqs[:4]:
         print(f"req {r.uid}: {r.out_tokens}")
-    pct = engine.latency_percentiles()
-    t, p = pct["ttft_s"], pct["tpot_s"]
     print(f"prefill {engine.stats['prefill_s']:.2f}s | "
           f"decode {engine.stats['decode_s']:.2f}s | "
           f"{engine.throughput():.1f} tok/s steady-state "
-          f"({'latent' if args.no_packed else 'packed 2-bit'}, {dev})")
-    print(f"TTFT p50/p99 {t['p50'] * 1e3:.0f}/{t['p99'] * 1e3:.0f}ms | "
-          f"TPOT p50/p99 {p['p50'] * 1e3:.2f}/{p['p99'] * 1e3:.2f}ms | "
+          f"({'latent' if args.no_packed else 'packed 2-bit'}, {dev}) | "
           f"steps {engine.stats['steps']}")
+    _print_percentiles(engine)
     if engine.prefix is not None:
         print(f"prefix cache: hit rate {engine.stats['prefix_hit_rate']:.2f} | "
               f"{engine.stats['cached_blocks']} cached blocks | "
               f"{engine.stats['prefix_evictions']} evictions")
+    _obs_finish(args, obs)
     return engine, reqs
 
 

@@ -1,8 +1,9 @@
 """Typed metrics registry — the single owner of engine telemetry (a copy
-of the reference's ``repro/obs/metrics.py``; its Prometheus exporter is not
-ported yet).
+of the reference's ``repro/obs/metrics.py``).
 
-Three metric kinds, Prometheus-shaped and host-side:
+Three metric kinds, Prometheus-shaped and host-side; ``repro_torch.obs.export``
+renders the registry in Prometheus text-exposition format behind a scrape
+endpoint (``launch/serve.py --metrics-port``) or a periodic textfile writer:
 
 * :class:`Counter`   — monotonically increasing value (``inc``); ``set`` is
   the reset/write-through escape hatch the legacy ``engine.stats`` dict

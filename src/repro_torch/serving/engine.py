@@ -33,9 +33,17 @@ enc-dec and VLM under ``whole`` only, as in the reference.  An enc-dec
 prefill encodes zero ``frames`` and a VLM prefill projects zero
 ``patches``, the reference's stubs (a VLM slot's cache also holds the
 ``frontend_seq`` patch positions before its prompt).
+
+Observability, as in the reference: ``tracer=`` records the run
+(``obs.trace.EventTracer``; ``flight_recorder=True`` or a capacity attaches
+a ring-buffered one), ``incidents=`` attaches an
+``obs.incident.IncidentMonitor``, and ``profiler_annotations=True`` wraps
+each step's model call in ``obs.trace.step_annotation`` for
+``torch.profiler``.  None of them changes a token or a counter.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 import warnings
 from dataclasses import dataclass, field
@@ -47,6 +55,7 @@ from repro_torch.core import bitlinear, ternary
 from repro_torch.device import resolve_device
 from repro_torch.models import layers, model_zoo
 from repro_torch.obs import NULL_TRACER, MetricsRegistry, StatsView
+from repro_torch.obs import trace as obs_trace
 from repro_torch.plan import BatchProfile, ModelPlan, compile_plan
 from repro_torch.plan import runtime as plan_runtime
 from repro_torch.serving.kv_cache import PagedKVCache
@@ -252,7 +261,9 @@ class ServingEngine:
                  token_budget: int | None = None, profile_density: bool = True,
                  plan: ModelPlan | None = None, sparse: str | bool = "auto",
                  sparse_block: tuple | None = None,
-                 prefix_cache: bool | int = False, tracer=None, device="cuda"):
+                 prefix_cache: bool | int = False, tracer=None,
+                 profiler_annotations: bool = False, incidents=None,
+                 flight_recorder: bool | int = False, device="cuda"):
         if policy is None:
             policy = "flat" if cfg.family in _CHUNKABLE_FAMILIES else "whole"
         elif policy not in _POLICIES:
@@ -305,13 +316,32 @@ class ServingEngine:
         # The typed registry owns all run telemetry; ``stats`` is a
         # write-through view over it under the reference's key names.  Every
         # tracer emit site guards on ``tracer.enabled``.
+        if tracer is None and flight_recorder:
+            # Always-on flight recorder: a ring-buffered tracer cheap enough
+            # to leave on, so incident snapshots can dump the last N events.
+            # An int picks the ring capacity.
+            cap = (flight_recorder if isinstance(flight_recorder, int)
+                   and not isinstance(flight_recorder, bool)
+                   else obs_trace.DEFAULT_RING_CAPACITY)
+            tracer = obs_trace.EventTracer(sink=obs_trace.RingSink(cap))
         self.tracer = NULL_TRACER if tracer is None else tracer
+        # Each model call inside a ``torch.profiler`` range named by
+        # ``obs.trace.step_annotation``.
+        self._profile_steps = bool(profiler_annotations)
         self._phase: dict[int, str] = {}
         self.sched.tracer = self.tracer
         self.kv.tracer = self.tracer
         if self.prefix is not None:
             self.prefix.tracer = self.tracer
         reg = self.metrics = MetricsRegistry()
+        # Incident snapshots: the monitor's hooks sit outside the
+        # ``tracer.enabled`` guards and it owns no registry metric, so
+        # attaching one changes neither the tokens nor the counters.
+        self.incidents = incidents
+        self._evictions_seen = 0
+        if incidents is not None:
+            incidents.bind(registry=reg, tracer=self.tracer)
+        self.kv.incidents = incidents
         t_step = reg.counter("step_time_s", "wall seconds in engine step calls, by phase",
                              labels=("phase",))
         self._t_prefill = t_step.labels(phase="prefill")
@@ -445,7 +475,10 @@ class ServingEngine:
                                     reserve_full=self.policy == "whole",
                                     prefix_cache=self.prefix)
         if self.sched.rejections > rej0:
-            self._c_rejections.inc(self.sched.rejections - rej0)
+            n_rej = self.sched.rejections - rej0
+            self._c_rejections.inc(n_rej)
+            if self.incidents is not None:
+                self.incidents.observe("rejection", n=n_rej, queue_len=len(self._queue))
         tr = self.tracer
         for i, st in admitted:
             self._c_admissions.inc()
@@ -543,6 +576,8 @@ class ServingEngine:
         if first:
             req.t_first = time.perf_counter()
             self._h_ttft.observe(req.ttft)
+            if self.incidents is not None:
+                self.incidents.request_first_token(req)
         if tr.enabled:
             if self._phase.get(req.uid) == "prefill":
                 tr.end(req.uid, "prefill")
@@ -556,6 +591,8 @@ class ServingEngine:
             req.done = True
             req.t_done = time.perf_counter()
             self._h_tpot.observe(req.tpot)
+            if self.incidents is not None:
+                self.incidents.request_finished(req)
             if tr.enabled:
                 tr.end(req.uid, "decode")
                 tr.mark(req.uid, "finished", n_out=len(req.out_tokens),
@@ -608,18 +645,21 @@ class ServingEngine:
         # rectangular: the padded B*C); realized/planned is the step-budget
         # utilization.
         planned = plan.width if flat else self.slots * plan.chunk
+        ann = (obs_trace.step_annotation(step_no) if self._profile_steps
+               else contextlib.nullcontext())
         t0 = time.perf_counter()
-        if flat:
-            sel, self.kv.pools = self._planned(
-                _flat_call, self.cfg, self.params, self.kv.pools, *tables,
-                self._to_device(plan.tokens), self._to_device(plan.slot),
-                self._to_device(plan.pos), self._to_device(plan.emit_row))
-        else:
-            sel, self.kv.pools = self._planned(
-                _chunk_call, self.cfg, self.params, self.kv.pools, *tables,
-                self._to_device(plan.tokens), self._to_device(plan.pos),
-                self._to_device(plan.lengths), self._to_device(plan.emit_idx))
-        self._sync()
+        with ann:
+            if flat:
+                sel, self.kv.pools = self._planned(
+                    _flat_call, self.cfg, self.params, self.kv.pools, *tables,
+                    self._to_device(plan.tokens), self._to_device(plan.slot),
+                    self._to_device(plan.pos), self._to_device(plan.emit_row))
+            else:
+                sel, self.kv.pools = self._planned(
+                    _chunk_call, self.cfg, self.params, self.kv.pools, *tables,
+                    self._to_device(plan.tokens), self._to_device(plan.pos),
+                    self._to_device(plan.lengths), self._to_device(plan.emit_idx))
+            self._sync()
         dt = time.perf_counter() - t0
 
         self._c_steps.inc()
@@ -673,6 +713,10 @@ class ServingEngine:
                 # finished on its first token was registered at finish.
                 self._register_prefix(i, st)
         self._sync_prefix_stats()
+        if self.incidents is not None:
+            ev = int(self.stats["prefix_evictions"]) if self.prefix is not None else 0
+            self.incidents.step_tick(evictions=max(0, ev - self._evictions_seen))
+            self._evictions_seen = ev
         return True
 
     def _preempt(self, i: int):
@@ -698,6 +742,9 @@ class ServingEngine:
         self._queue.insert(0, st.req)
         self._c_preemptions.inc()
         st.req.n_preempted += 1
+        if self.incidents is not None:
+            self.incidents.observe("preemption", uid=st.req.uid, slot=i, cursor=st.cursor,
+                                   n_preempted=st.req.n_preempted)
 
     @property
     def busy(self) -> bool:
@@ -760,7 +807,14 @@ class ServingEngine:
         self._g_step_tokens.set(0)
         self.metrics.reset_run()
         self._sync_prefix_stats()
+        # A streaming sink truncates its on-disk segments here too, so
+        # warm-up events never reach a saved trace.
         self.tracer.reset()
+        self._evictions_seen = 0
+        if self.incidents is not None:
+            # Warm-up incidents are noise: their files go and the debouncing
+            # re-arms.
+            self.incidents.reset_run()
 
     # -- metrics --------------------------------------------------------------
 

@@ -85,6 +85,7 @@ class PagedKVCache:
         self.block_hash: dict[int, int] = {}          # cached-content hashes
         self.evictor = None                           # set by a prefix cache
         self.tracer = NULL_TRACER                     # set by ServingEngine
+        self.incidents = None                         # set by ServingEngine
 
     # -- allocator ----------------------------------------------------------
 
@@ -129,6 +130,11 @@ class PagedKVCache:
                 # preemptions in the timeline analysis.
                 self.tracer.instant("kv_pressure", slot=slot, need=grow,
                                     free=len(self._free))
+            if self.incidents is not None:
+                # Outside the tracer guard: incident snapshots fire with
+                # tracing on or off.
+                self.incidents.observe("kv_pressure", slot=slot, need=grow,
+                                       free=len(self._free))
             self.evictor.evict(grow - len(self._free))
         if grow > len(self._free):
             return False

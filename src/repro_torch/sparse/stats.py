@@ -111,3 +111,14 @@ def summarize(profile: list[dict]) -> dict:
         "density_min": min(d),
         "block_density_mean": sum(b) / len(b),
     }
+
+
+def format_report(profile: list[dict]) -> str:
+    """Human-readable per-layer density table."""
+    lines = [f"| {'layer':40s} | {'shape':>16s} | density | blk_dens |",
+             "|" + "-" * 76 + "|"]
+    for p in profile:
+        lines.append(
+            f"| {p['path'][:40]:40s} | {str(p['shape']):>16s} "
+            f"| {p['density']:7.3f} | {p['block_density']:8.3f} |")
+    return "\n".join(lines)

@@ -1,12 +1,15 @@
 """Helpers of the port's serving tests: reference params (latent and frozen
-by the reference) carried across with the bridge, step-plan recording, and
-one engine pair (reference and port) run on the same requests.
+by the reference) carried across with the bridge, step-plan recording, one
+engine pair (reference and port) run on the same requests, and a workload
+trace's replay through the port's engine (:func:`workload_engine`,
+:func:`replay`).
 
 The comparison of a pair (:func:`assert_same_run`) holds the port to the
 project's float contract: plans, greedy tokens and counters are equal,
 except that one request per run may pick another token where the
 reference's own logits sit at a near tie (see :func:`near_tie`)."""
 import functools
+import time
 
 import jax
 import jax.numpy as jnp
@@ -90,6 +93,45 @@ def reference_dense(arch: str):
 def port_params(arch: str) -> dict:
     """The reference's frozen params carried to the CPU (a fresh copy)."""
     return bridge.params_from_reference(reference_frozen(arch)[1], device="cpu")
+
+
+def workload_engine(spec, cfg, params, *, prefix_cache=None, **kw):
+    """The port's engine on the CPU from a workload spec's engine hints, as
+    ``benchmarks.workloads.runner.build_engine`` builds the reference's;
+    ``prefix_cache`` overrides the hint, ``kw`` adds options (``tracer``,
+    ``incidents``, ...)."""
+    e = spec.engine
+    return ServingEngine(
+        cfg, params, device="cpu", max_len=e.get("max_len", 128),
+        batch_slots=e.get("slots", 4), prefill_chunk=e.get("prefill_chunk", 16),
+        block_size=e.get("block_size", 16), kv_blocks=e.get("kv_blocks"),
+        prefix_cache=e.get("prefix_cache", False) if prefix_cache is None else prefix_cache,
+        **kw)
+
+
+def replay(engine, trace, step_dt: float = 1.0):
+    """``benchmarks.workloads.runner.replay`` for the port's engine: one
+    engine step advances virtual time by ``step_dt``; every request whose
+    arrival has passed is submitted before the next step."""
+    order = sorted(trace.requests, key=lambda t: (t.arrival, t.uid))
+    reqs = [Request(uid=t.uid, prompt=np.asarray(t.prompt, np.int32),
+                    max_new_tokens=t.max_new_tokens, temperature=t.temperature)
+            for t in order]
+    engine.warmup(seq_len=max(len(t.prompt) + t.max_new_tokens for t in order))
+    vt, i, n = 0.0, 0, len(reqs)
+    t0 = time.perf_counter()
+    while i < n or engine.busy:
+        while i < n and order[i].arrival <= vt + 1e-9:
+            engine.submit(reqs[i])
+            i += 1
+        if not engine.step():
+            assert not engine.queue_len, "a request can never be admitted"
+            if i < n:
+                vt = max(vt, order[i].arrival)
+                continue
+        vt += step_dt
+    by_uid = {r.uid: r for r in reqs}
+    return [by_uid[t.uid] for t in trace.requests], time.perf_counter() - t0
 
 
 def requests(cls, lens, max_new: int, seed: int, vocab: int = 100) -> list:

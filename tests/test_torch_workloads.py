@@ -12,47 +12,21 @@ trace with the cache off.  ``plan_kernel`` (the compiled plan's decode
 kernel) is compared apart: the port plans with H100 constants.
 """
 import json
-import time
 from pathlib import Path
 
 import jax
 import numpy as np
 import pytest
-from _torch_serving import reference_latent
+from _torch_serving import reference_latent, replay, workload_engine
 
 from benchmarks.workloads import metrics
 from benchmarks.workloads.generator import generate, preset
 from repro_torch import bridge
-from repro_torch.serving import Request, ServingEngine, freeze_params
+from repro_torch.serving import Request, freeze_params
 
 ROOT = Path(__file__).resolve().parents[1]
 BASELINE = json.loads((ROOT / "benchmarks" / "baselines" / "BENCH_e2e.baseline.json")
                       .read_text())["workloads"]
-
-
-def replay(engine, trace, step_dt: float = 1.0):
-    """``benchmarks.workloads.runner.replay`` for the port's engine: one
-    engine step advances virtual time by ``step_dt``; every request whose
-    arrival has passed is submitted before the next step."""
-    order = sorted(trace.requests, key=lambda t: (t.arrival, t.uid))
-    reqs = [Request(uid=t.uid, prompt=np.asarray(t.prompt, np.int32),
-                    max_new_tokens=t.max_new_tokens, temperature=t.temperature)
-            for t in order]
-    engine.warmup(seq_len=max(len(t.prompt) + t.max_new_tokens for t in order))
-    vt, i, n = 0.0, 0, len(reqs)
-    t0 = time.perf_counter()
-    while i < n or engine.busy:
-        while i < n and order[i].arrival <= vt + 1e-9:
-            engine.submit(reqs[i])
-            i += 1
-        if not engine.step():
-            assert not engine.queue_len, "a request can never be admitted"
-            if i < n:
-                vt = max(vt, order[i].arrival)
-                continue
-        vt += step_dt
-    by_uid = {r.uid: r for r in reqs}
-    return [by_uid[t.uid] for t in trace.requests], time.perf_counter() - t0
 
 
 @pytest.fixture(scope="module")
@@ -68,12 +42,8 @@ def replays():
     def run(name: str, keep: bool = True):
         if name not in done:
             spec = preset(name.removesuffix("-cold"), quick=True, seed=0)
-            e = spec.engine
-            engine = ServingEngine(
-                cfg, params, device="cpu", max_len=e.get("max_len", 128),
-                batch_slots=e.get("slots", 4), prefill_chunk=e.get("prefill_chunk", 16),
-                block_size=e.get("block_size", 16), kv_blocks=e.get("kv_blocks"),
-                prefix_cache=False if name.endswith("-cold") else e.get("prefix_cache", False))
+            engine = workload_engine(spec, cfg, params,
+                                     prefix_cache=False if name.endswith("-cold") else None)
             done[name] = engine, replay(engine, generate(spec))[0]
         return done[name] if keep else done.pop(name)
 
