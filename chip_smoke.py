@@ -176,6 +176,27 @@ Phases, in order; any failure raises and the exit code is non-zero:
    moments) to an uninterrupted run; and one train step of every family's
    reduced config on the card matches the CPU's loss within 1e-4 relative
    (same params, drawn on the CPU).
+19a. dry-run against the card (before the phase-8 params are dropped): the
+   meta-device dry-run (``repro_torch.launch.dryrun.run_cell``, 1 x 1 mesh,
+   packed weights, bf16 cache) of full-width ``bitnet-2b-4t`` in two cells
+   that fit one card, decode 32 x 4096 and prefill 4 x 2048, beside what
+   the card holds for the same tensors (the frozen tree, the cache, the
+   batch: by ``nbytes`` and by allocator deltas) and does in one step
+   (peak allocated beyond what was allocated before it; the launch
+   delta).  Gates: argument bytes equal by ``nbytes`` and within 1 % by the
+   allocator, the kernel tally's ``tsar_matmul`` calls equal to the launch
+   delta, the step's peak within 25 % of the predicted temp bytes.  After
+   phase 18 the dry-run's prediction for its training cell (1024 x 2,
+   latent, remat) is printed beside the measured peak (not gated).
+19b. the dry-run sweep: every non-skipped cell of ``configs.cells()``,
+   packed, on the single-pod 16 x 16 mesh, full width on meta in one
+   process per CPU core: every cell ``ok``; ``report.dryrun_table`` /
+   ``roofline_table`` and the sweep's wall time printed.
+19c. the three examples (``examples/torch_*.py``) through ``main()`` on the
+   card: quickstart's loss falls and its serving launches ``tsar_matmul``;
+   every request of serve_ternary finishes, with launches and a max step
+   load within its budget; train_resume completes after exactly one
+   restart.
 
 Phase 7 also holds ``tsar_matmul`` at the enc-dec and VLM projections'
 (K, M) x N in {4, 20, 1500, 3008} (the encoder's 1500 frame rows, llava's
@@ -243,6 +264,10 @@ POLICIES = ("flat", "chunked", "whole")
 # The training phase: optimizer steps, tokens per sequence, sequences per
 # step, microbatches per step.
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = 3, 1024, 2, 2
+# Phase 19a's cells: full-width bitnet decode and prefill that fit one card.
+DRYRUN_CARD_CELLS = (("decode_card", 4096, 32, "decode"), ("prefill_card", 2048, 4, "prefill"))
+# Bytes allocated on the card by each ``init_frozen`` tree, by label.
+FROZEN_ALLOC: dict[str, int] = {}
 
 
 def _require(cond: bool, what: str) -> None:
@@ -1314,6 +1339,7 @@ def init_frozen(torch, cfg, kill_blocks: bool = False, by_block: bool = False,
     dev = torch.device("cuda")
     gc.collect()             # an earlier phase's engines hold reference cycles
     torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
     gen = torch.Generator(device=dev).manual_seed(0)
     if by_block:
         t_init = t_freeze = 0.0
@@ -1352,6 +1378,7 @@ def init_frozen(torch, cfg, kill_blocks: bool = False, by_block: bool = False,
         t_freeze = time.perf_counter() - t0
         del latents
     torch.cuda.empty_cache()
+    FROZEN_ALLOC[label] = torch.cuda.memory_allocated() - base
     print(f"{label}: {cfg.name} init {t_init:.2f} s, freeze {t_freeze:.2f} s"
           f"{' (one layer at a time)' if by_block else ''}, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident after freeze",
@@ -2397,6 +2424,187 @@ def train_agreement(torch, cfgs: list, tol: float = 1e-4) -> None:
                  f"reduced {cfg.name} train step on the GPU disagrees with the CPU")
 
 
+def _tree_nbytes(tree) -> int:
+    return sum(v.numel() * v.element_size() for v in _flat_leaves(tree).values())
+
+
+def dryrun_card_phase(torch, cfg, params) -> dict:
+    """19a: the dry-run's bytes and kernel tally of two full-width cells
+    beside what the card allocates and launches for the same tensors and
+    step (``params``: the phase-8 tree, allocated by ``init_frozen``)."""
+    import numpy as np
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model_zoo
+
+    dev = torch.device("cuda")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    param_bytes = _tree_nbytes(params)
+    out = {}
+    for shape in (ShapeConfig(*c) for c in DRYRUN_CARD_CELLS):
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(cfg, shape, mesh, "1x1", weights="packed", verbose=False,
+                              fsdp=False, cache_dtype=torch.bfloat16)
+        t_dry = time.perf_counter() - t0
+        _require(rec["status"] == "ok", f"dry-run {shape.name}: {rec.get('error')}")
+        mem = rec["memory_analysis"]
+        pred_args, pred_temp = mem["argument_size_in_bytes"], mem["temp_size_in_bytes"]
+        tally = rec["kernels"].get("tsar_matmul", 0)
+
+        # The same inputs on the card: the batch (numpy seed 0) and the cache.
+        gc.collect()
+        torch.cuda.synchronize()
+        a0 = torch.cuda.memory_allocated()
+        b, s = shape.global_batch, shape.seq_len
+        rng = np.random.default_rng(0)
+        rows = 1 if shape.kind == "decode" else s
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(b, rows),
+                                               dtype=np.int32)).to(dev)
+        cache = model_zoo.init_cache(cfg, b, s, torch.bfloat16, dev)
+        extra = [torch.tensor(s - 1, dtype=torch.int32, device=dev)] \
+            if shape.kind == "decode" else []
+        torch.cuda.synchronize()
+        inputs_alloc = torch.cuda.memory_allocated() - a0
+        card_nbytes = (param_bytes + _tree_nbytes(cache) + tokens.numel() * 4
+                       + sum(t.numel() * t.element_size() for t in extra))
+        card_alloc = FROZEN_ALLOC["engine"] + inputs_alloc
+
+        zero_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        if shape.kind == "decode":
+            logits, cache = model_zoo.decode_step(cfg, params, tokens, cache, s - 1)
+        else:
+            logits, cache = model_zoo.prefill(cfg, params, {"tokens": tokens}, cache)
+        torch.cuda.synchronize()
+        t_step = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - before
+        launches = launch_counts()
+        _require(bool(torch.isfinite(logits).all()), f"dry-run card {shape.name}: logits")
+        del logits, cache, tokens, extra
+        gc.collect()
+
+        alloc_gap = abs(card_alloc - pred_args) / pred_args
+        temp_gap = abs(peak - pred_temp) / pred_temp
+        print(f"dry-run vs card, {cfg.name} {shape.name} ({shape.kind} {b} x {s}, packed, "
+              f"bf16 cache; dry-run {t_dry:.2f} s on meta, step {t_step:.3f} s on the card): "
+              f"arguments predicted {pred_args:.0f} B, card nbytes {card_nbytes} B, "
+              f"allocated {card_alloc} B ({100 * alloc_gap:.3f} % off) | step temp "
+              f"predicted {pred_temp:.0f} B ({pred_temp / 2**30:.3f} GiB), card peak beyond "
+              f"the arguments {peak} B ({peak / 2**30:.3f} GiB, {100 * temp_gap:.2f} % off) | "
+              f"tally tsar_matmul {tally}, launches {launches} | flops/dev "
+              f"{rec['roofline']['flops_per_device']:.4g}, bound {rec['roofline']['bound']} "
+              f"| {gpu_line()}", flush=True)
+        _require(card_nbytes == pred_args,
+                 f"{shape.name}: argument bytes {card_nbytes} on the card, {pred_args:.0f} "
+                 "predicted")
+        _require(alloc_gap <= 0.01, f"{shape.name}: allocated {card_alloc} B against "
+                 f"{pred_args:.0f} B predicted ({100 * alloc_gap:.3f} %)")
+        _require(launches["tsar_matmul"] == tally and launches["tsar_matmul"] > 0
+                 and sum(launches.values()) == tally,
+                 f"{shape.name}: tally {rec['kernels']}, launches {launches}")
+        _require(temp_gap <= 0.25, f"{shape.name}: step peak {peak} B against {pred_temp:.0f} "
+                 f"B predicted ({100 * temp_gap:.2f} %)")
+        out[shape.name] = {"pred_args": pred_args, "card_nbytes": card_nbytes,
+                           "card_alloc": card_alloc, "pred_temp": pred_temp, "peak": peak,
+                           "tally": tally, "launches": launches["tsar_matmul"]}
+    return out
+
+
+def dryrun_train_prediction(torch, cfg, measured_gib: float) -> None:
+    """19a, after phase 18: the dry-run's peak for the training cell beside
+    the measured one (printed; the dry-run steps the whole batch at once,
+    phase 18 in ``TRAIN_ACCUM`` microbatches)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    shape = ShapeConfig("train_card", TRAIN_SEQ, TRAIN_BATCH, "train")
+    rec = dryrun.run_cell(cfg, shape, make_mesh((1, 1), ("data", "model")), "1x1",
+                          weights="latent", verbose=False, fsdp=False, remat=True)
+    _require(rec["status"] == "ok", f"dry-run train_card: {rec.get('error')}")
+    mem = rec["memory_analysis"]
+    pred = (mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]) / 2**30
+    print(f"dry-run vs card, {cfg.name} training {TRAIN_BATCH} x {TRAIN_SEQ} (latent, remat): "
+          f"predicted peak {pred:.2f} GiB (arguments "
+          f"{mem['argument_size_in_bytes'] / 2**30:.2f} + step "
+          f"{mem['temp_size_in_bytes'] / 2**30:.2f}; one batch of {TRAIN_BATCH}), phase 18 "
+          f"measured {measured_gib:.2f} GiB ({TRAIN_ACCUM} microbatches) | {gpu_line()}",
+          flush=True)
+
+
+def sweep_phase(torch) -> list:
+    """19b: every non-skipped cell, packed, on the single-pod mesh, at full
+    width on meta, one process per CPU core."""
+    import repro_torch.configs as configs
+    from repro_torch.launch import dryrun, report
+
+    jobs = [(c.name, s.name, "single", "packed", {}) for c, s, _ in configs.cells()]
+    # Longest first (train cells, then prefill, then decode), so that no
+    # long cell starts last; the records are put back in the cells' order.
+    rank = {"train": 0, "prefill": 1, "decode": 2}
+    order = sorted(range(len(jobs)), key=lambda i: rank[configs.SHAPES[jobs[i][1]].kind])
+    workers = min(len(jobs), os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    done = dict(zip(order, dryrun.sweep([jobs[i] for i in order], workers)))
+    wall = time.perf_counter() - t0
+    recs = [done[i] for i in range(len(jobs))]
+    bad = [(r["arch"], r["shape"], r.get("error")) for r in recs if r["status"] != "ok"]
+    _require(not bad, f"dry-run sweep: cells not ok: {bad}")
+    print(f"dry-run sweep: {len(recs)}/{len(jobs)} cells ok on the single-pod mesh "
+          f"(16 x 16, packed) in {wall:.1f} s wall, {workers} processes, "
+          f"{sum(r['wall_s'] for r in recs):.1f} s of cells", flush=True)
+    print(report.dryrun_table(recs, "single"))
+    print(report.roofline_table(recs, "single"), flush=True)
+    return recs
+
+
+def _example(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(torch) -> None:
+    """19c: the three examples through ``main()`` with the default device
+    (the card), each a path: launch counts zeroed before, read after."""
+    runs = {}
+    for name in ("torch_quickstart", "torch_serve_ternary", "torch_train_resume"):
+        gc.collect()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        result = _example(name).main([])
+        runs[name] = (result, launch_counts(), time.perf_counter() - t0)
+    out, launches, dt = runs["torch_quickstart"]
+    losses = out["losses"]
+    first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    _require(last < first and launches["tsar_matmul"] > 0,
+             f"quickstart: loss {first:.4f} -> {last:.4f}, launches {launches}")
+    print(f"example torch_quickstart: {dt:.1f} s, loss {first:.4f} -> {last:.4f} (mean of the "
+          f"first / last 10 of {len(losses)} steps), serving launches {launches}", flush=True)
+    out, launches, dt = runs["torch_serve_ternary"]
+    done = sum(r.done for r in out["requests"])
+    load = out["engine"].max_step_tokens()
+    _require(done == len(out["requests"]) and launches["tsar_matmul"] > 0
+             and load <= out["budget"],
+             f"serve_ternary: {done}/{len(out['requests'])} done, launches {launches}, "
+             f"max step load {load} (budget {out['budget']})")
+    print(f"example torch_serve_ternary: {dt:.1f} s, {done} requests done, launches "
+          f"{launches}, max step load {load} <= budget {out['budget']}", flush=True)
+    report, launches, dt = runs["torch_train_resume"]
+    _require(report.completed and report.restarts == 1,
+             f"train_resume: completed {report.completed}, restarts {report.restarts}")
+    print(f"example torch_train_resume: {dt:.1f} s, completed after {report.restarts} "
+          f"restart | {gpu_line()}", flush=True)
+
+
 def _to(torch, tree, dev):
     """A copy of a nested dict of tensors on ``dev``."""
     if isinstance(tree, dict):
@@ -2472,7 +2680,10 @@ def main() -> int:
     # annotations under torch.profiler, a reduced traced run card vs CPU
     obs_phase(torch, cfg, params, prefix_runs["warm, tight pool"])
     annotation_phase(torch, cfg, params)
-    del params, flat_run, prefix_runs
+    # 19a. the dry-run against what the card allocates for the same tree
+    del flat_run, prefix_runs
+    dryrun_card_phase(torch, cfg, params)
+    del params
     cpu_agreement(torch, cfg)
     obs_agreement(torch, cfg)
     sparse_launches = sparse_engine_phase(torch, cfg)["launches"]
@@ -2500,9 +2711,14 @@ def main() -> int:
                 max_len=vlm_cfg.frontend_seq + 128 + 64)
     # 18. training: full-width bitnet trained, frozen and served both ways;
     # a restart on the reduced config; one train step per family vs the CPU
-    train_phase(torch, cfg)
+    trained = train_phase(torch, cfg)
+    dryrun_train_prediction(torch, cfg, trained["peak_gib"])
+    del trained
     restart_phase(torch, cfg)
     train_agreement(torch, [cfg, moe_cfg, ssm_cfg, hybrid_cfg, encdec_cfg, vlm_cfg])
+    # 19b-19c. the dry-run sweep on meta; the examples on the card
+    sweep_phase(torch)
+    examples_phase(torch)
 
     # Per kernel, the seven projections at N=4: times 30 layers for the two
     # kernels of the serving step (one decode step), one layer for the two of

@@ -4,7 +4,10 @@
 The reference holds TPU v5e constants; the port's planner costs kernels
 against the H100 SXM data sheet (dense rates, at the full 700 W power limit):
 989 TFLOP/s bf16, 1,979 TOP/s int8, 3.35 TB/s HBM3, 132 SMs, and 228 KiB of
-shared memory per SM in place of the TPU's VMEM.  ``chip_smoke.py`` prints them
+shared memory per SM in place of the TPU's VMEM.  ``NVLINK_BW`` is NVLink 4's
+450 GB/s per direction per GPU (the data sheet's 900 GB/s counts both
+directions), the link rate the dry-run roofline's collective term divides
+by in place of the TPU's ICI link.  ``chip_smoke.py`` prints them
 beside ``torch.cuda.get_device_properties(0)``.
 
 ``SPARSE_ISSUE_TAX`` and ``SPARSE_PAD_STEP_FRAC`` and the calibration API
@@ -19,6 +22,7 @@ import json
 PEAK_FLOPS_BF16 = 989e12       # FLOP/s, dense bf16 tensor cores
 PEAK_FLOPS_INT8 = 1979e12      # int8 ops/s, dense tensor cores
 HBM_BW = 3.35e12               # bytes/s
+NVLINK_BW = 450e9              # bytes/s per direction per GPU (NVLink 4)
 SMEM_BYTES = 228 * 1024        # shared memory per SM
 SM_COUNT = 132                 # streaming multiprocessors
 

@@ -22,8 +22,9 @@ is floating-point (rtol 1e-4, atol 2e-3 against the dense product), not
 bit-exact.
 
 On a CPU tensor :func:`tsar_lut_gemv` computes the plain version; on a CUDA
-tensor it launches the kernel or raises.  ``LAUNCHES`` counts the launches,
-and only those.
+tensor it launches the kernel or raises; on a meta tensor it returns the
+kernel's empty output and records the call in ``kernels.tally``.
+``LAUNCHES`` counts the launches, and only those.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import lut
+from repro_torch.kernels import tally
 
 # Launch counter; chip_smoke.py zeroes it before driving a path.
 LAUNCHES = {"tsar_lut": 0}
@@ -237,10 +239,11 @@ def tsar_lut_gemv(a: torch.Tensor, idx_pos: torch.Tensor, idx_zero: torch.Tensor
     _check(a, idx_pos, idx_zero, w_scale, c)
     if a.device.type == "cpu":
         return tsar_lut_plain(a, idx_pos, idx_zero, w_scale, c)
-    if a.device.type != "cuda":
+    if a.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {a.device}")
+    meta = a.device.type == "meta"
     for name, t in (("a", a), ("idx_pos", idx_pos), ("idx_zero", idx_zero)):
-        if t.data_ptr() % _ALIGN:
+        if not meta and t.data_ptr() % _ALIGN:
             raise ValueError(f"{name} must be {_ALIGN}-byte aligned for the CUDA kernel")
     n = a.shape[0]
     blocks, m = idx_pos.shape
@@ -249,6 +252,9 @@ def tsar_lut_gemv(a: torch.Tensor, idx_pos: torch.Tensor, idx_zero: torch.Tensor
     a, idx_pos, idx_zero, w_scale = pad_for_tma(a, idx_pos, idx_zero, w_scale, c)
     blocks, mp = idx_pos.shape
     out = torch.empty((n, m), dtype=torch.float32, device=a.device)
+    if meta:
+        tally.record("tsar_lut", n, blocks * c, mp)
+        return out
     index = a.device.index if a.device.index is not None else torch.cuda.current_device()
     cfg = launch_config(n, blocks, mp, c, _sm_count(index))
     with torch.cuda.device(a.device):

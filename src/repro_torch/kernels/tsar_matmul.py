@@ -17,9 +17,10 @@ int8 weight matrix ever reaches device memory.  See the source for the
 layout; :func:`launch_config` picks the tiles.
 
 On a CPU tensor :func:`tsar_matmul_packed` computes the plain version; on a
-CUDA tensor it launches the kernel or raises.  ``LAUNCHES`` counts the
-launches (and only those), so a run can show the serving path went through
-the kernel.
+CUDA tensor it launches the kernel or raises; on a meta tensor it returns
+the kernel's empty output and records the call in ``kernels.tally``.
+``LAUNCHES`` counts the launches (and only those), so a run can show the
+serving path went through the kernel.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import ternary
+from repro_torch.kernels import tally
 
 # Launch counter; chip_smoke.py zeroes it before driving the serving path.
 LAUNCHES = {"tsar_matmul": 0}
@@ -195,17 +197,21 @@ def tsar_matmul_packed(a_q: torch.Tensor, a_scale: torch.Tensor,
     _check(a_q, a_scale, sign_plane, zero_plane, w_scale)
     if a_q.device.type == "cpu":
         return tsar_matmul_plain(a_q, a_scale, sign_plane, zero_plane, w_scale)
-    if a_q.device.type != "cuda":
+    if a_q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {a_q.device}")
+    meta = a_q.device.type == "meta"
     n, m = a_q.shape[0], sign_plane.shape[1]
     for name, t in (("a_q", a_q), ("sign_plane", sign_plane), ("zero_plane", zero_plane)):
-        if t.data_ptr() % _ALIGN:
+        if not meta and t.data_ptr() % _ALIGN:
             raise ValueError(f"{name} must be {_ALIGN}-byte aligned for the CUDA kernel")
     a_q, sign_plane, zero_plane, w_scale = pad_for_tma(a_q, sign_plane, zero_plane, w_scale)
     kp, mp = a_q.shape[1], sign_plane.shape[1]
     out = torch.empty((n, mp), dtype=torch.float32, device=a_q.device)
     if n == 0:
         return out[:, :m]
+    if meta:
+        tally.record("tsar_matmul", n, kp, mp)
+        return out if mp == m else out[:, :m].contiguous()
     index = a_q.device.index if a_q.device.index is not None else torch.cuda.current_device()
     cfg = launch_config(n, kp, mp, _sm_count(index))
     with torch.cuda.device(a_q.device):

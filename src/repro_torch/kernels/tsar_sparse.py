@@ -28,8 +28,9 @@ both outputs are bit-identical to ``tsar_matmul`` on the decoded matrix and
 to the one plain version.  :func:`launch_config` picks the tiles.
 
 On a CPU tensor each wrapper computes the plain version; on a CUDA tensor
-it launches its kernel or raises.  ``LAUNCHES`` counts each entry point's
-launches apart, and only those.
+it launches its kernel or raises; on a meta tensor it returns the kernel's
+empty output and records the call in ``kernels.tally``.  ``LAUNCHES``
+counts each entry point's launches apart, and only those.
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import ternary
+from repro_torch.kernels import tally
 from repro_torch.kernels import tsar_matmul as _mxu_kernel
 
 # Launch counters; chip_smoke.py zeroes them before driving a path.
@@ -247,17 +249,22 @@ def _launch(symbol: str, counter: str, a_q, a_scale, sign_pool, zero_pool,
     if a_q.device.type == "cpu":
         return tsar_sparse_padded_plain(a_q, a_scale, sign_pool, zero_pool,
                                         kids, slots, counts, w_scale)
-    if a_q.device.type != "cuda":
+    if a_q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {a_q.device}")
     n = a_q.shape[0]
     pool_slots, k8, bm = sign_pool.shape
     mb, s_steps = kids.shape
     if n == 0 or mb == 0:
         return torch.empty((n, mb * bm), dtype=torch.float32, device=a_q.device)
+    meta = a_q.device.type == "meta"
     a_q, sign_pool, zero_pool, w_scale = pad_for_tma(
-        _aligned(a_q), _aligned(sign_pool), _aligned(zero_pool), w_scale)
+        *((a_q, sign_pool, zero_pool) if meta else
+          (_aligned(a_q), _aligned(sign_pool), _aligned(zero_pool))), w_scale)
     kp, (k8, bmp) = a_q.shape[1], sign_pool.shape[1:]
     out = torch.empty((n, mb * bmp), dtype=torch.float32, device=a_q.device)
+    if meta:
+        tally.record(counter, n, kp, mb * bmp)
+        return out if bmp == bm else out.view(n, mb, bmp)[:, :, :bm].reshape(n, mb * bm)
     index = a_q.device.index if a_q.device.index is not None else torch.cuda.current_device()
     cfg = launch_config(n, 8 * k8, bmp, mb, s_steps, _sm_count(index))
     with torch.cuda.device(a_q.device):

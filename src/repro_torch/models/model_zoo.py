@@ -29,7 +29,10 @@ def _mod(cfg):
     return encdec if cfg.family == "encdec" else transformer
 
 
-def init_params(cfg, generator: torch.Generator, device="cuda") -> dict:
+def init_params(cfg, generator: torch.Generator | None, device="cuda") -> dict:
+    """Latent params drawn from ``generator``, which lives on ``device``;
+    on ``device="meta"`` pass None: the tree carries shapes and dtypes
+    only."""
     return _mod(cfg).init_params(cfg, generator, device)
 
 
@@ -141,3 +144,48 @@ def scatter_cache_view(pools: dict, writers: tuple, view: dict) -> dict:
         rows = view[name].reshape((l, b * (t // bs), bs) + tuple(leaf.shape[3:]))
         leaf[:, blocks] = rows[:, first]
     return pools
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta-device stand-ins, the dry-run contract)
+# ---------------------------------------------------------------------------
+
+def _meta(shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg, shape, cache_dtype=torch.bfloat16) -> dict:
+    """Model inputs for one (arch x shape) cell, as meta tensors (the
+    reference's ``ShapeDtypeStruct``s: same shapes and dtypes).
+
+    * train/prefill cells: full-sequence token batches (+ frontend stubs).
+      For the VLM the patch tokens take the first ``frontend_seq`` positions
+      of the cell's ``seq_len``, so the backbone's length is ``seq_len``.
+    * decode cells: one new token per sequence, the KV/SSM caches sized to
+      ``seq_len`` and the step's length ``t``.
+    """
+    b, s = shape.global_batch, shape.seq_len
+    kind = shape.kind
+    specs: dict = {}
+    if kind in ("train", "prefill"):
+        s_text = s
+        if cfg.family == "vlm":
+            s_text = s - cfg.frontend_seq
+            specs["patches"] = _meta((b, cfg.frontend_seq, cfg.frontend_dim), torch.float32)
+        if cfg.family == "encdec":
+            specs["frames"] = _meta((b, cfg.enc_seq, cfg.d_model), torch.float32)
+        specs["tokens"] = _meta((b, s_text), torch.int32)
+        if kind == "train":
+            specs["labels"] = _meta((b, s_text), torch.int32)
+        else:
+            specs["cache"] = init_cache(cfg, b, s, cache_dtype, "meta")
+    else:
+        specs["tokens"] = _meta((b, 1), torch.int32)
+        specs["cache"] = init_cache(cfg, b, s, cache_dtype, "meta")
+        specs["t"] = _meta((), torch.int32)
+    return specs
+
+
+def param_specs(cfg) -> dict:
+    """The latent params tree on the meta device (no allocation)."""
+    return init_params(cfg, None, "meta")

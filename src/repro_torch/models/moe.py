@@ -112,8 +112,9 @@ def _expert_weights(p: dict, train: bool = True) -> torch.Tensor:
 
 def _sum_dtype(x: torch.Tensor) -> torch.dtype:
     """The dtype this module's sums run in: float64 on the GPU, float32 on
-    the CPU (see the module docstring)."""
-    return torch.float64 if x.is_cuda else torch.float32
+    the CPU (see the module docstring); a meta tensor (the dry-run) takes
+    the GPU's."""
+    return torch.float32 if x.device.type == "cpu" else torch.float64
 
 
 def _bf16_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

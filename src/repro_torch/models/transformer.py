@@ -58,7 +58,8 @@ def _check_family(cfg, what: str) -> None:
 
 def init_block(cfg, generator: torch.Generator, device="cuda") -> dict:
     """One layer's latent fp32 params (the reference's ``_init_block``),
-    drawn from ``generator``, which must live on ``device``."""
+    drawn from ``generator``, which must live on ``device`` (None on
+    ``meta``)."""
     _check_family(cfg, "init_block")
     dev = resolve_device(device)
     d = cfg.d_model
@@ -107,8 +108,9 @@ def init_head(cfg, generator: torch.Generator, device="cuda") -> dict:
 def init_params(cfg, generator: torch.Generator, device="cuda") -> dict:
     """Latent fp32 params: each layer drawn by :func:`init_block`, then the
     layers stacked, as the reference's ``init_params`` builds them.
-    ``generator`` must live on ``device``.  The layout (and every leaf name)
-    matches the reference's; the random numbers do not."""
+    ``generator`` must live on ``device`` (None on ``meta``).  The layout
+    (and every leaf name) matches the reference's; the random numbers do
+    not."""
     blocks = [init_block(cfg, generator, device) for _ in range(cfg.n_layers)]
     return {"blocks": stack_layers(blocks), **init_head(cfg, generator, device)}
 

@@ -156,7 +156,9 @@ def freeze_params(params, *, sparse: str | bool = "auto",
     * ``"auto"`` (default): a pre-pass measures each stack's block occupancy
       and emits pools only where the mean live-block fraction is below
       ``bitlinear.SPARSE_SIDE_CAR_THRESHOLD``, sized to the measured stack-wide
-      ``max_live``/``s_steps`` (caller values act as floors);
+      ``max_live``/``s_steps`` (caller values act as floors); on the meta
+      device nothing is measurable, so no pools are emitted (the
+      reference's behaviour under tracing);
     * ``True``: always emit pools, padded to ``max_live``/``s_steps`` (the
       full grid and K/bk when None); bounds that do not hold raise;
     * ``False``: planes only.
@@ -171,10 +173,15 @@ def freeze_params(params, *, sparse: str | bool = "auto",
         if sparse is True:
             kw = {"sparse": True, "block_shape": bshape, "max_live": max_live,
                   "s_steps": s_steps}
-        elif sparse == "auto":
+        elif sparse == "auto" and w.device.type != "meta":
             kw = _sparse_prepass(w, bshape, max_live=max_live, s_steps=s_steps) or {}
-        slices = [layers.pack_linear({"w": w2}, **kw) for w2 in _stack_slices(w)]
         lead = tuple(w.shape[:-2])
+        if w.device.type == "meta":
+            # Every slice packs to the same shapes: pack one, stack empties.
+            one = layers.pack_linear({"w": w.reshape((-1,) + tuple(w.shape[-2:]))[0]}, **kw)
+            return {k: torch.empty(lead + tuple(v.shape), dtype=v.dtype, device=w.device)
+                    for k, v in one.items()}
+        slices = [layers.pack_linear({"w": w2}, **kw) for w2 in _stack_slices(w)]
         return {k: torch.stack([s[k] for s in slices]).reshape(
                     lead + tuple(slices[0][k].shape)) for k in slices[0]}
 

@@ -247,10 +247,13 @@ def pad_from_ternary(t: torch.Tensor, scale: torch.Tensor | None = None,
     device.
 
     ``max_live`` defaults to the full block grid and ``s_steps`` to
-    ``K/bk``, both lossless.  Tighter bounds that do not hold raise.
+    ``K/bk``, both lossless.  Tighter bounds that do not hold raise.  On
+    the meta device only the shapes are built and the bounds are the
+    caller's promise, as under the reference's tracing.
     """
     flat = _blocks(t, bk, bm)
     dev = flat.device
+    meta = dev.type == "meta"
     k, m = t.shape
     kb, mb = -(-k // bk), -(-m // bm)
     grid_n = kb * mb
@@ -259,7 +262,7 @@ def pad_from_ternary(t: torch.Tensor, scale: torch.Tensor | None = None,
 
     occ = torch.count_nonzero(flat, dim=(1, 2)).to(torch.float32) / (bk * bm)
     live = occ > 0.0
-    n_live = int(live.sum())
+    n_live = 0 if meta else int(live.sum())
     if n_live > max_live:
         raise ValueError(f"max_live={max_live} < {n_live} live blocks; pass a "
                          "larger pool (or None for the full grid)")
@@ -269,11 +272,12 @@ def pad_from_ternary(t: torch.Tensor, scale: torch.Tensor | None = None,
     k8 = bk // ternary.PACK
     sign_pool = torch.zeros((max_live, k8, bm), dtype=torch.uint8, device=dev)
     zero_pool = torch.full((max_live, k8, bm), 0xFF, dtype=torch.uint8, device=dev)
-    sign_pool[slot[live].long()] = _pack_blocks(flat[live] < 0)
-    zero_pool[slot[live].long()] = _pack_blocks(flat[live] == 0)
+    if not meta:
+        sign_pool[slot[live].long()] = _pack_blocks(flat[live] < 0)
+        zero_pool[slot[live].long()] = _pack_blocks(flat[live] == 0)
 
     block_map = torch.where(live, slot, -1).reshape(kb, mb).to(torch.int32)
-    s_max = int(torch.sum(block_map >= 0, dim=0).max()) if mb else 0
+    s_max = int(torch.sum(block_map >= 0, dim=0).max()) if mb and not meta else 0
     if s_max > s_steps:
         raise ValueError(f"s_steps={s_steps} < {s_max} live blocks in the fullest "
                          "strip; pass a larger s_steps (or None for K/bk)")

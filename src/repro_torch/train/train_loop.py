@@ -32,7 +32,8 @@ class TrainState(NamedTuple):
 def init_state(cfg, generator: torch.Generator, opt_cfg: OptConfig,
                compressed: bool = False, device="cuda") -> TrainState:
     """Fresh latent params from ``generator`` (which must live on
-    ``device``), zero moments in ``opt_cfg.moment_dtype``, step 0."""
+    ``device``; None on ``meta``), zero moments in
+    ``opt_cfg.moment_dtype``, step 0."""
     dev = resolve_device(device)
     params = model_zoo.init_params(cfg, generator, dev)
     return TrainState(

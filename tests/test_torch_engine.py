@@ -132,10 +132,11 @@ def test_plan_is_accepted_and_used(ref_latent, monkeypatch):
 
 
 def _port_files():
-    """The port's package, chip_smoke.py and the A/B tools that drive it on the
-    card (none of them may need JAX there)."""
+    """The port's package, chip_smoke.py, the A/B tools that drive it on the
+    card and the port's examples (none of them may need JAX there)."""
     return (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-            + sorted((ROOT / "tools").glob("*.py")))
+            + sorted((ROOT / "tools").glob("*.py"))
+            + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))

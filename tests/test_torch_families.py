@@ -8,13 +8,16 @@ and the deterministic counters must be identical (``run_pair`` /
 ``assert_same_run``): ``deepseek-moe-16b`` under ``flat``, ``chunked`` and
 ``whole`` at its default capacity and under ``flat`` dropless;
 ``mamba2-780m`` and ``hymba-1.5b`` under ``whole``, the only policy the
-reference allows them.  The SSM families' prompts are at most the reduced
+reference allows them; ``llama4-maverick-400b-a17b`` (top-1 routing over
+its experts, a shared expert, qk-norm) and the dense ``deepseek-coder-33b``
+under ``flat``, with their teacher-forced logits.  The SSM families' prompts are at most the reduced
 ``ssm_chunk`` (16) or a multiple of it: a whole prefill of any other length
 fails in the reference, and in the port (tested below).
 """
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -29,6 +32,7 @@ from repro_torch.models import model_zoo, transformer
 from repro_torch.serving import Request, ServingEngine
 
 MOE, SSM, HYBRID = "deepseek-moe-16b", "mamba2-780m", "hymba-1.5b"
+LLAMA4, CODER = "llama4-maverick-400b-a17b", "deepseek-coder-33b"
 _KW = dict(max_len=64, batch_slots=2, prefill_chunk=8)
 SCENARIOS = {
     # name: (arch, engine kwargs, capacity_factor or None, prompt lengths)
@@ -38,6 +42,10 @@ SCENARIOS = {
     "moe_flat_dropless": (MOE, _KW, 8.0, [3, 8, 21, 40, 5]),
     "ssm_whole": (SSM, _KW, None, [3, 8, 16, 32, 5]),
     "hybrid_whole": (HYBRID, _KW, None, [3, 8, 16, 32, 5]),
+    # 128 experts top-1 with a shared expert and qk-norm (4 experts reduced);
+    # the dense 62-layer coder (2 layers reduced).
+    "llama4_flat": (LLAMA4, _KW, None, [3, 8, 21, 40, 5]),
+    "coder_flat": (CODER, _KW, None, [3, 8, 21, 40, 5]),
 }
 
 
@@ -50,9 +58,33 @@ def test_engine_matches_reference(scenario):
     run = run_pair(arch, kw, lambda cls: requests(cls, lens, 5, 7), cfg=cfg)
     assert_same_run(*run)
     port = run[1]
-    assert port.policy == kw.get("policy", "flat" if arch == MOE else "whole")
+    assert port.policy == kw.get("policy", "flat" if cfg.family in ("dense", "moe")
+                                 else "whole")
     if port.policy == "whole":
         assert port.stats["whole_prefills"] == len(lens)
+
+
+# Logits tolerance per arch: the dense coder at test_torch_policies.py's
+# 1e-4; llama4's routed experts are bf16 products (roundoff 2^-8) behind a
+# float32 router that XLA and torch round differently, so its logits are
+# held at test_torch_moe.py's 1e-2 for the MoE output (max 0.008 over three
+# seeds of 2 x 40 tokens), with every argmax equal.
+FORWARD_TOL = {LLAMA4: dict(rtol=1e-2, atol=1e-2), CODER: dict(rtol=1e-4, atol=1e-4)}
+
+
+@pytest.mark.parametrize("arch", sorted(FORWARD_TOL))
+def test_forward_matches_reference(arch):
+    """Teacher-forced logits of the reduced config on the reference's frozen
+    planes (carried across): within the arch's tolerance, argmax equal, the
+    MoE aux loss within 1e-6."""
+    cfg, frozen = reference_frozen(arch)
+    toks = np.random.default_rng(4).integers(0, 500, size=(2, 40)).astype(np.int32)
+    want, want_aux = jzoo.forward(cfg, frozen, {"tokens": jnp.asarray(toks)}, train=False)
+    got, aux = model_zoo.forward(cfg, port_params(arch), {"tokens": torch.from_numpy(toks)})
+    assert tuple(got.shape) == (2, 40, cfg.padded_vocab)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FORWARD_TOL[arch])
+    np.testing.assert_array_equal(got.argmax(-1).numpy(), np.asarray(want).argmax(-1))
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("arch", [MOE, SSM, HYBRID])
