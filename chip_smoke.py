@@ -197,6 +197,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
    every request of serve_ternary finishes, with launches and a max step
    load within its budget; train_resume completes after exactly one
    restart.
+20. mesh phase: one spawned NCCL rank per card (``torch.cuda.device_count()``;
+   the world size is the phase's first line: on one card every collective
+   spans a world of one, and the exchange across cards is shown on the CPU
+   only), on a (1, 1) mesh with one card and on (n, 1) and (1, n) meshes
+   with n >= 2.  Full-width ``bitnet-2b-4t``, per mesh: the serving cells
+   on the mesh (``launch.dryrun.mesh_cells``, frozen params, 4 slots x 32
+   prompt tokens, 16 greedy tokens) give the tokens of the unsharded
+   ``prefill`` / ``decode_step`` on the same card strictly, with 210
+   ``tsar_matmul`` launches per step on every rank, prefill and decode ms
+   of both printed; ``train.jit_train_step(fsdp=True)`` at phase 18's
+   2 x 1024 (remat, 2 microbatches where the rows allow): loss within 1e-4
+   of the plain ``loss_and_grads`` on the same batch and params, the state
+   back in its placements, step time and peak device memory printed beside
+   the dry-run's prediction for that mesh; then two
+   ``make_compressed_dp_train_step`` steps (2 x 1024 rows per rank): loss
+   finite.  Any failure to start NCCL fails the run.
 
 Phase 7 also holds ``tsar_matmul`` at the enc-dec and VLM projections'
 (K, M) x N in {4, 20, 1500, 3008} (the encoder's 1500 frame rows, llava's
@@ -266,6 +282,8 @@ POLICIES = ("flat", "chunked", "whole")
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = 3, 1024, 2, 2
 # Phase 19a's cells: full-width bitnet decode and prefill that fit one card.
 DRYRUN_CARD_CELLS = (("decode_card", 4096, 32, "decode"), ("prefill_card", 2048, 4, "prefill"))
+# The mesh phase's serving cells: slots, prompt tokens, generated tokens.
+MESH_SLOTS, MESH_PROMPT, MESH_TOKENS = 4, 32, 16
 # Bytes allocated on the card by each ``init_frozen`` tree, by label.
 FROZEN_ALLOC: dict[str, int] = {}
 
@@ -2073,8 +2091,8 @@ def moe_phase(torch, cfg) -> dict:
     route = moe._route
     dropped = {"n": 0}
 
-    def counting_route(c, p, x):
-        r = route(c, p, x)
+    def counting_route(c, p, x, *rest):
+        r = route(c, p, x, *rest)
         kept = int(r["dispatch"].to(torch.float32).sum().item())
         dropped["n"] += x.shape[0] * x.shape[1] * c.moe_top_k - kept
         return r
@@ -2605,6 +2623,263 @@ def examples_phase(torch) -> None:
           f"restart | {gpu_line()}", flush=True)
 
 
+def mesh_dims(n: int) -> list:
+    """The mesh phase's (data, model) meshes over ``n`` ranks."""
+    return [(1, 1)] if n == 1 else [(n, 1), (1, n)]
+
+
+def mesh_phase(torch) -> dict:
+    """20. The serving cells, the sharded train step and the compressed
+    data-parallel step across one NCCL rank per card (see the module
+    docstring); the ranks run :func:`mesh_rank` in spawned processes and
+    write their results under ``build/mesh_phase``."""
+    import shutil
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    n = torch.cuda.device_count()
+    print(f"mesh: world size {n}, one NCCL rank per card"
+          + (": a world of one, so every collective below spans one rank (the "
+             "exchange across ranks is held against the reference on gloo ranks on "
+             "the CPU)" if n == 1 else ""), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "build" / "mesh_phase"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    mp.start_processes(mesh_rank, args=(n, port, str(out_dir)), nprocs=n,
+                       start_method="spawn")
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(n)]
+    per_step = len(step_shapes(configs_get(ARCH))) * configs_get(ARCH).n_layers
+    for i, dims in enumerate(mesh_dims(n)):
+        serve, train = ranks[0]["serve"][i], ranks[0]["train"][i]
+        for r in ranks:
+            rs, rt = r["serve"][i], r["train"][i]
+            _require(rs["tokens_equal"], f"mesh {dims} rank {r['rank']}: tokens differ from "
+                     "the unsharded cells")
+            _require(rs["launches"] == [per_step], f"mesh {dims} rank {r['rank']}: "
+                     f"tsar_matmul launches per step {rs['launches']}, want {per_step}")
+            _require(abs(rt["loss"] - rt["plain_loss"]) <= 1e-4,
+                     f"mesh {dims} rank {r['rank']}: sharded loss {rt['loss']} vs plain "
+                     f"{rt['plain_loss']}")
+            _require(rt["same_placements"], f"mesh {dims}: the state changed placements")
+        rec = dryrun.run_cell(configs_get(ARCH), ShapeConfig("train_card", TRAIN_SEQ,
+                                                             TRAIN_BATCH, "train"),
+                              make_mesh(dims, ("data", "model")), f"{dims[0]}x{dims[1]}",
+                              weights="latent", verbose=False, fsdp=True, remat=True)
+        _require(rec["status"] == "ok", f"dry-run train_card {dims}: {rec.get('error')}")
+        mem = rec["memory_analysis"]
+        pred = (mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]) / 2**30
+        print(f"mesh {dims[0]}x{dims[1]} serving, {MESH_SLOTS} slots x {MESH_PROMPT} prompt "
+              f"tokens, {MESH_TOKENS} greedy tokens equal to the unsharded cells on every "
+              f"rank, tsar_matmul launches per step {per_step} on every rank: prefill "
+              f"{serve['prefill_ms']:.3f} ms (unsharded {serve['plain_prefill_ms']:.3f}), "
+              f"decode {serve['decode_ms']:.3f} ms per step at the median (unsharded "
+              f"{serve['plain_decode_ms']:.3f}); first mesh call {serve['first_ms']:.1f} ms "
+              f"| {gpu_line()}", flush=True)
+        print(f"mesh {dims[0]}x{dims[1]} jit_train_step(fsdp=True) {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ}, {train['accum']} microbatch(es), remat: loss {train['loss']:.6f} "
+              f"(plain {train['plain_loss']:.6f}, |diff| "
+              f"{abs(train['loss'] - train['plain_loss']):.2e}), step {train['step_s']:.3f} s "
+              f"(plain loss_and_grads {train['plain_s']:.3f} s), peak device memory "
+              f"{train['peak_gib']:.2f} GiB per device, dry-run predicted {pred:.2f} GiB "
+              f"(arguments {mem['argument_size_in_bytes'] / 2**30:.2f} + step "
+              f"{mem['temp_size_in_bytes'] / 2**30:.2f}) | {gpu_line()}", flush=True)
+    comp = ranks[0]["compressed"]
+    _require(all(math.isfinite(x) for x in comp["losses"]), f"compressed losses {comp}")
+    print(f"mesh compressed data-parallel steps ({TRAIN_BATCH} x {TRAIN_SEQ} rows per rank, "
+          f"world {n}, int8 all-to-all + bf16 all-gather over NCCL): loss "
+          f"{' -> '.join(f'{x:.4f}' for x in comp['losses'])}, step "
+          f"{', '.join(f'{x:.3f}' for x in comp['step_s'])} s, peak device memory "
+          f"{comp['peak_gib']:.2f} GiB | phase wall {wall:.1f} s | {gpu_line()}", flush=True)
+    return {"n": n, "ranks": ranks, "wall_s": wall}
+
+
+def configs_get(name: str):
+    import repro_torch.configs as configs
+
+    return configs.get(name)
+
+
+def mesh_rank(rank: int, n: int, port: int, out_dir: str) -> None:
+    """One rank of the mesh phase (a spawned process): joins the NCCL group
+    of the ``torchrun`` environment this sets, runs the serving cells, the
+    sharded train step on each mesh and the compressed steps, and writes
+    its results to ``out_dir/rank<r>.json``."""
+    import datetime
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
+                      LOCAL_RANK=str(rank), WORLD_SIZE=str(n))
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch import mesh as mesh_lib
+
+    dev = mesh_lib.init_process_group("cuda", timeout=datetime.timedelta(seconds=300))
+    try:
+        cfg = configs_get(ARCH)
+        res = {"rank": rank, "device": str(dev),
+               "serve": [mesh_serve(torch, cfg, dims, dev) for dims in mesh_dims(n)],
+               "train": [mesh_train(torch, cfg, dims, dev) for dims in mesh_dims(n)],
+               "compressed": mesh_compressed(torch, cfg, n, dev)}
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def _device_mesh(dims: tuple):
+    from repro_torch.launch import mesh as mesh_lib
+
+    return mesh_lib.device_mesh(mesh_lib.make_mesh(dims, ("data", "model")), "cuda")
+
+
+def mesh_serve(torch, cfg, dims: tuple, dev) -> dict:
+    """The frozen full-width model's prefill and greedy decode through the
+    mesh cells and through the unsharded entry points, twice each (the
+    second timed): tokens, launches per step, ms."""
+    import numpy as np
+
+    from repro_torch.kernels import tsar_matmul
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model_zoo
+    from repro_torch.serving import freeze_params
+
+    dm = _device_mesh(dims)
+    params = freeze_params(model_zoo.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev), sparse=False)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (MESH_SLOTS, MESH_PROMPT))).long().to(dev)
+    max_len = MESH_PROMPT + MESH_TOKENS
+
+    def greedy(prefill, decode, make_cache) -> dict:
+        cache = make_cache()
+        ms, launches = [], []
+        out = []
+        for i in range(MESH_TOKENS):
+            tsar_matmul.LAUNCHES["tsar_matmul"] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 0:
+                logits, cache = prefill({"tokens": toks}, cache)
+            else:
+                logits, cache = decode(out[-1], cache, MESH_PROMPT + i - 1)
+            nxt = logits[:, -1:].argmax(-1)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append(tsar_matmul.LAUNCHES["tsar_matmul"])
+            out.append(nxt)
+        return {"tokens": torch.cat(out, 1).cpu(), "ms": ms, "launches": launches}
+
+    with torch.no_grad():
+        def plain_cache():
+            return model_zoo.init_cache(cfg, MESH_SLOTS, max_len, torch.float32, dev)
+
+        plain_run = [greedy(lambda b, c: model_zoo.prefill(cfg, params, b, c),
+                            lambda tk, c, t: model_zoo.decode_step(cfg, params, tk, c, t),
+                            plain_cache) for _ in range(2)]
+        cells = dryrun.mesh_cells(cfg, params, dm)
+        mesh_run = [greedy(cells.prefill, cells.decode_step,
+                           lambda: cells.place_cache(plain_cache())) for _ in range(2)]
+    del cells, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"dims": dims,
+            "tokens_equal": all(torch.equal(r["tokens"], plain_run[0]["tokens"])
+                                for r in plain_run + mesh_run),
+            "launches": sorted({x for r in mesh_run for x in r["launches"]}),
+            "prefill_ms": mesh_run[1]["ms"][0], "plain_prefill_ms": plain_run[1]["ms"][0],
+            "decode_ms": statistics.median(mesh_run[1]["ms"][1:]),
+            "plain_decode_ms": statistics.median(plain_run[1]["ms"][1:]),
+            "first_ms": mesh_run[0]["ms"][0]}
+
+
+def mesh_train(torch, cfg, dims: tuple, dev) -> dict:
+    """One ``jit_train_step(fsdp=True)`` step of the full-width model at
+    phase 18's batch, beside the plain ``loss_and_grads`` on the same
+    params and batch."""
+    from repro_torch.checkpoint.checkpointing import _flatten
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import init_state, jit_train_step, loss_and_grads
+
+    dm = _device_mesh(dims)
+    rows = TRAIN_BATCH // dims[0]
+    accum = TRAIN_ACCUM if rows % TRAIN_ACCUM == 0 else 1
+    opt_cfg = OptConfig(warmup_steps=2, total_steps=TRAIN_STEPS)
+    state = init_state(cfg, torch.Generator(device=dev).manual_seed(0), opt_cfg, device=dev)
+    batch = SyntheticLMStream(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)).batch(
+        0, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_loss, _, grads = loss_and_grads(cfg, state.params, batch, remat=True,
+                                          accum_steps=accum)
+    plain_loss = float(plain_loss)
+    plain_s = time.perf_counter() - t0
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = jit_train_step(cfg, opt_cfg, dm, state, batch, fsdp=True, remat=True,
+                          accum_steps=accum)
+    placed = step.place(state)
+    del state
+    torch.cuda.reset_peak_memory_stats()        # the step's peak
+    before = [(k, tuple(map(str, v.placements))) for k, v in _flatten(placed).items()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, metrics = step(placed, batch)
+    loss = float(metrics["loss"])
+    step_s = time.perf_counter() - t0
+    after = [(k, tuple(map(str, v.placements))) for k, v in _flatten(new).items()]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del placed, new, metrics, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"dims": dims, "accum": accum, "loss": loss, "plain_loss": plain_loss,
+            "step_s": step_s, "plain_s": plain_s, "peak_gib": peak,
+            "same_placements": before == after}
+
+
+def mesh_compressed(torch, cfg, n: int, dev) -> dict:
+    """Two ``make_compressed_dp_train_step`` steps over the world, each rank
+    on ``TRAIN_BATCH`` rows of ``TRAIN_SEQ`` tokens."""
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import init_state, make_compressed_dp_train_step
+
+    opt_cfg = OptConfig(warmup_steps=2, total_steps=TRAIN_STEPS)
+    state = init_state(cfg, torch.Generator(device=dev).manual_seed(0), opt_cfg,
+                       compressed=True, device=dev)
+    stream = SyntheticLMStream(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH * n))
+    step = make_compressed_dp_train_step(cfg, opt_cfg, remat=True)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(2):
+        batch = stream.batch(i, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_s": times, "peak_gib": peak}
+
+
 def _to(torch, tree, dev):
     """A copy of a nested dict of tensors on ``dev``."""
     if isinstance(tree, dict):
@@ -2719,6 +2994,8 @@ def main() -> int:
     # 19b-19c. the dry-run sweep on meta; the examples on the card
     sweep_phase(torch)
     examples_phase(torch)
+    # 20. across devices: one NCCL rank per card
+    mesh_phase(torch)
 
     # Per kernel, the seven projections at N=4: times 30 layers for the two
     # kernels of the serving step (one decode step), one layer for the two of

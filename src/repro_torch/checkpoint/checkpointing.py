@@ -21,6 +21,13 @@ optionally asynchronous: the leaves are copied to host memory before the
 writer thread starts, so later in-place updates of the state do not reach
 the file; ``wait()`` joins.  ``keep`` bounds the completed checkpoints
 kept.
+
+A state sharded over a device mesh (DTensor leaves) is saved by every rank
+calling :func:`save`: each leaf is gathered whole (``full_tensor``) and
+rank 0 writes it, in the same format.  ``restore(..., shardings=)`` places
+each leaf on a mesh by its ``train.sharding.NamedSharding``, which may
+belong to a mesh of another size than the one that saved it (the elastic
+restore).
 """
 from __future__ import annotations
 
@@ -32,16 +39,19 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _SEP = "/"
 _BF16 = "bfloat16"
 
 
-def _flatten(tree) -> dict[str, Any]:
+def _flatten(tree, leaf=lambda node: False) -> dict[str, Any]:
     flat = {}
 
     def visit(path, node):
-        if isinstance(node, dict):
+        if leaf(node):
+            flat[_SEP.join(path)] = node
+        elif isinstance(node, dict):
             for k, v in node.items():
                 visit(path + [str(k)], v)
         elif isinstance(node, (tuple, list)) and not hasattr(node, "_fields"):
@@ -59,6 +69,12 @@ def _flatten(tree) -> dict[str, Any]:
     return flat
 
 
+def _writer() -> bool:
+    """Whether this process writes checkpoint files (rank 0, or no
+    process group)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_host(t: torch.Tensor) -> tuple[np.ndarray, str]:
     """(a numpy copy of ``t``, its dtype name); bfloat16 as raw ``V2``."""
     t = t.detach().to("cpu", copy=True)
@@ -69,10 +85,20 @@ def _to_host(t: torch.Tensor) -> tuple[np.ndarray, str]:
 
 
 def save(ckpt_dir: str, step: int, tree, keep: int = 3, async_save: bool = False):
-    """Checkpoint ``tree`` at ``step``.  Returns a handle with ``.wait()``."""
+    """Checkpoint ``tree`` at ``step``.  Returns a handle with ``.wait()``.
+    Under a process group every rank calls it and rank 0 writes: each
+    DTensor leaf is gathered whole on every rank (a collective), and only
+    the writer copies it to host memory."""
     host, dtypes = {}, {}
+    writer = _writer()
     for k, v in _flatten(tree).items():
-        host[k], dtypes[k] = _to_host(v)
+        if hasattr(v, "full_tensor"):
+            v = v.full_tensor()
+        if writer:
+            host[k], dtypes[k] = _to_host(v)
+        del v
+    if not writer:
+        return _Handle(None)
     manifest = {
         "step": step,
         "leaves": {k: {"shape": list(v.shape), "dtype": dtypes[k]} for k, v in host.items()},
@@ -136,10 +162,15 @@ def _to_tensor(arr: np.ndarray, dtype_name: str, key: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore(ckpt_dir: str, step: int, target_tree, device=None):
+def restore(ckpt_dir: str, step: int, target_tree, device=None, shardings=None):
     """Restore into the structure of ``target_tree``: each leaf is cast to
     its target leaf's dtype and placed on ``device`` (by default the target
-    leaf's device).  Raises on a missing leaf or a shape mismatch."""
+    leaf's device).  Raises on a missing leaf or a shape mismatch.
+
+    ``shardings``: a tree of ``train.sharding.NamedSharding`` of the same
+    structure; each leaf it covers becomes a DTensor on that mesh, every
+    rank keeping its own shards of the file's full leaf (the elastic
+    restore: the mesh need not be the one that saved)."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         leaves = json.load(f)["leaves"]
@@ -147,6 +178,7 @@ def restore(ckpt_dir: str, step: int, target_tree, device=None):
         host = {k: z[k] for k in z.files}
 
     flat_target = _flatten(target_tree)
+    flat_shard = _flatten(shardings, leaf=_is_sharding) if shardings is not None else {}
     missing = set(flat_target) - set(host)
     if missing:
         raise ValueError(f"checkpoint at {path} missing leaves: {sorted(missing)[:5]}...")
@@ -158,8 +190,26 @@ def restore(ckpt_dir: str, step: int, target_tree, device=None):
             raise ValueError(f"shape mismatch for {k}: ckpt {arr.shape} vs target "
                              f"{tuple(tgt.shape)}")
         t = _to_tensor(arr, leaves[k]["dtype"], k)
-        restored[k] = t.to(device=tgt.device if device is None else device, dtype=tgt.dtype)
+        if k in flat_shard:
+            restored[k] = _place(t.to(tgt.dtype), flat_shard[k])
+        else:
+            restored[k] = t.to(device=tgt.device if device is None else device,
+                               dtype=tgt.dtype)
     return _unflatten_like(target_tree, restored)
+
+
+def _is_sharding(node) -> bool:
+    return hasattr(node, "device_mesh") and hasattr(node, "placements")
+
+
+def _place(t: torch.Tensor, named) -> torch.Tensor:
+    """``t`` as a DTensor on ``named.device_mesh``, this rank's shards."""
+    from torch.distributed.tensor import distribute_tensor
+
+    mesh = named.device_mesh
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device(mesh.device_type))
+    return distribute_tensor(t.to(dev), mesh, named.placements, src_data_rank=None)
 
 
 def _unflatten_like(tree, flat: dict, path=()):

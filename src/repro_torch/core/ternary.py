@@ -163,11 +163,15 @@ def random_ternary(generator: torch.Generator, shape: tuple,
     return torch.where(zero, 0, torch.where(sign, 1, -1)).to(torch.int8)
 
 
-def quantize_activations(a: torch.Tensor, eps: float = 1e-6
+def quantize_activations(a: torch.Tensor, eps: float = 1e-6,
+                         absmax: torch.Tensor | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-token absmax int8 quantization: ``a`` (..., K) float ->
-    (q int8 (..., K), scale f32 (..., 1)) with ``a ~= q * scale``."""
-    absmax = torch.amax(torch.abs(a), dim=-1, keepdim=True)
+    (q int8 (..., K), scale f32 (..., 1)) with ``a ~= q * scale``.
+    ``absmax`` (..., 1) replaces the rows' own absmax: a K-sharded row
+    quantizes its slice with the whole row's."""
+    if absmax is None:
+        absmax = torch.amax(torch.abs(a), dim=-1, keepdim=True)
     scale = (absmax / 127.0 + eps).to(torch.float32)
     q = torch.clamp(torch.round(a / scale), -127, 127).to(torch.int8)
     return q, scale

@@ -49,14 +49,20 @@ def tsar_matmul(x: torch.Tensor, tw: ternary.TernaryWeights, *,
     if x.shape[-1] != k:
         raise ValueError(f"x has {x.shape[-1]} features, weights expect {k}")
     lead = tuple(x.shape[:-1])
-    x2 = x.reshape(-1, k).to(torch.float32)
-    a_q, a_scale = ternary.quantize_activations(x2)
+    a_q, a_scale = ternary.quantize_activations(x.reshape(-1, k).to(torch.float32))
+    return tsar_matmul_quantized(a_q, a_scale, tw).reshape(lead + (m,))
+
+
+def tsar_matmul_quantized(a_q: torch.Tensor, a_scale: torch.Tensor,
+                          tw: ternary.TernaryWeights) -> torch.Tensor:
+    """:func:`tsar_matmul` from activations already quantized: ``a_q``
+    (N, K) int8 and ``a_scale`` (N, 1) float32 -> (N, M) float32."""
     # Padded K columns are zero activations, so whatever the plane tail
     # decodes to contributes nothing (the kernel's wrapper pads further).
     a_q = _pad_to(a_q, 1, 8)
-    y = _mxu_kernel.tsar_matmul_packed(a_q.contiguous(), a_scale, tw.sign_plane.contiguous(),
-                                       tw.zero_plane.contiguous(), tw.scale.contiguous())
-    return y.reshape(lead + (m,))
+    return _mxu_kernel.tsar_matmul_packed(a_q.contiguous(), a_scale.contiguous(),
+                                          tw.sign_plane.contiguous(),
+                                          tw.zero_plane.contiguous(), tw.scale.contiguous())
 
 
 def tsar_sparse_matmul(x: torch.Tensor, bst) -> torch.Tensor:

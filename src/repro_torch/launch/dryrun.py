@@ -39,7 +39,7 @@ import time
 import traceback
 import weakref
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import torch
 from torch.utils import _pytree as pytree
@@ -151,6 +151,16 @@ def _dense_bf16(tree):
     return tree
 
 
+def serve_fsdp(cfg, mesh, weights: str = "packed") -> bool:
+    """Whether a serve cell shards its weights over the data axes too: only
+    when the tensor-parallel shards alone would pass 8 GB (packed 2-bit
+    weights fit them outright; FSDP trades that residency for per-layer
+    weight all-gathers every decode step)."""
+    mesh = sharding._as_mesh(mesh)
+    bytes_per_w = 0.25 if weights == "packed" else 2.0
+    return cfg.n_params() * bytes_per_w / mesh.shape["model"] / 1e9 > 8.0
+
+
 def lower_cell(cfg, shape, mesh: Mesh, *, weights: str = "packed", fsdp: bool = True,
                remat: bool = True, cache_dtype=torch.bfloat16) -> tuple[Lowered, dict]:
     """Build the cell's step and its meta arguments.  Returns (lowered, meta)."""
@@ -179,10 +189,7 @@ def lower_cell(cfg, shape, mesh: Mesh, *, weights: str = "packed", fsdp: bool = 
         params = freeze_params(params)
     elif weights == "dense":
         params = _dense_bf16(params)
-    bytes_per_w = 0.25 if weights == "packed" else 2.0
-    shard_gb = cfg.n_params() * bytes_per_w / mesh.shape["model"] / 1e9
-    serve_fsdp = shard_gb > 8.0
-    pspecs = sharding.param_specs(params, mesh, fsdp=serve_fsdp)
+    pspecs = sharding.param_specs(params, mesh, fsdp=serve_fsdp(cfg, mesh, weights))
 
     inputs = zoo.input_specs(cfg, shape, cache_dtype=cache_dtype)
     cache = inputs.pop("cache")
@@ -202,6 +209,77 @@ def lower_cell(cfg, shape, mesh: Mesh, *, weights: str = "packed", fsdp: bool = 
                     (params, inputs["tokens"], cache, inputs["t"]),
                     (pspecs, tspec, cspecs, ()), (None, cspecs)),
             {"mode": "serve_step"})
+
+
+class MeshCells(NamedTuple):
+    """The serve cells of :func:`mesh_cells` (see there)."""
+
+    place_cache: Callable
+    prefill: Callable
+    decode_step: Callable
+
+
+def mesh_cells(cfg, params: dict, device_mesh, *, fsdp: bool | None = None) -> MeshCells:
+    """The prefill and decode cells run on a ``torch.distributed``
+    ``DeviceMesh``: the counterparts of the reference's jitted
+    ``lower_cell`` steps, with the same specs as :func:`lower_cell`.
+
+    The (frozen or latent) ``params`` are placed by
+    ``sharding.param_specs(fsdp=)`` (by default :func:`serve_fsdp`'s rule)
+    and a cache by ``sharding.cache_specs`` (``place_cache``).  Each step
+    places its token batch by ``sharding.batch_specs``, registers the mesh
+    for the activation constraints (``utils.act_sharding``) and runs
+    ``model_zoo.prefill`` / ``decode_step`` on the DTensors: the packed
+    projections run ``tsar_matmul`` on each rank's local shards
+    (``models.layers``), the MoE experts their expert-parallel branch, and
+    the tensors the step creates are replicated on the mesh
+    (``implicit_replication``).  ``prefill(batch, cache)`` and
+    ``decode_step(tokens, cache, t)`` return (the full logits as a plain
+    tensor on every rank, the cache placed as it came).
+    """
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.utils import act_sharding
+
+    if fsdp is None:
+        fsdp = serve_fsdp(cfg, device_mesh, "packed" if _packed(params) else "latent")
+    placed = sharding.place(params, device_mesh,
+                            sharding.param_specs(params, device_mesh, fsdp=fsdp))
+
+    def cache_specs(cache):
+        return sharding.cache_specs(device_mesh, cache, cfg.n_kv_heads)
+
+    def place_cache(cache):
+        return sharding.place(cache, device_mesh, cache_specs(cache))
+
+    def run(fn, cache, *args):
+        specs = cache_specs(cache)
+        before = act_sharding.get_mesh()
+        act_sharding.set_mesh(device_mesh)
+        try:
+            with implicit_replication(), torch.no_grad():
+                logits, new = fn(cfg, placed, *args, sharding.place(cache, device_mesh, specs))
+        finally:
+            act_sharding.set_mesh(before)
+        return logits.full_tensor(), sharding.place(new, device_mesh, specs)
+
+    def prefill(batch, cache):
+        b = sharding.place(batch, device_mesh, sharding.batch_specs(device_mesh, batch))
+        return run(lambda c, p, bt, ca: zoo.prefill(c, p, bt, ca, train=False), cache, b)
+
+    def decode_step(tokens, cache, t):
+        tk = sharding.place({"tokens": tokens}, device_mesh,
+                            sharding.batch_specs(device_mesh, {"tokens": tokens}))["tokens"]
+        return run(lambda c, p, x, ca: zoo.decode_step(c, p, x, ca, t, train=False),
+                   cache, tk)
+
+    return MeshCells(place_cache, prefill, decode_step)
+
+
+def _packed(params) -> bool:
+    if isinstance(params, dict):
+        return "sign" in params or any(_packed(v) for v in params.values())
+    return False
 
 
 def measure(lowered: Lowered, mesh: Mesh) -> dict:

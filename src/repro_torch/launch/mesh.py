@@ -1,14 +1,26 @@
-"""Production mesh, as a description (port of ``repro/launch/mesh.py``).
+"""Production mesh (port of ``repro/launch/mesh.py``), as a description
+and as a ``torch.distributed`` device mesh.
 
-A mesh here is its axis names and sizes, nothing more: building one creates
-no process group and touches no device, so the dry-run and the sharding
-rules can size a 256- or 512-device layout on one machine.  The reference's
-``jax.make_mesh`` shapes are kept so that specs compare one for one.
+A :class:`Mesh` is its axis names and sizes, nothing more: building one
+creates no process group and touches no device, so the dry-run and the
+sharding rules can size a 256- or 512-device layout on one machine.  The
+reference's ``jax.make_mesh`` shapes are kept so that specs compare one for
+one.
+
+To run on one, :func:`init_process_group` joins the processes that
+``torchrun`` started (NCCL for CUDA, one rank per card; gloo for the CPU)
+and :func:`device_mesh` lays a :class:`Mesh` over them as a
+``torch.distributed`` ``DeviceMesh`` with the same axis names and sizes.
 """
 from __future__ import annotations
 
+import datetime
 import math
+import os
 from dataclasses import dataclass
+
+import torch
+import torch.distributed as dist
 
 
 @dataclass(frozen=True)
@@ -46,3 +58,60 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 def make_mesh(shape: tuple, axes: tuple) -> Mesh:
     """Arbitrary mesh for scaling studies and tests."""
     return Mesh(tuple(shape), tuple(axes))
+
+
+def describe(device_mesh) -> Mesh:
+    """The :class:`Mesh` of a ``DeviceMesh`` (its axis names and sizes)."""
+    return Mesh(tuple(device_mesh.shape), tuple(device_mesh.mesh_dim_names))
+
+
+def init_process_group(device: str | torch.device = "cuda", *, init_method: str = "env://",
+                       rank: int | None = None, world_size: int | None = None,
+                       timeout: datetime.timedelta = datetime.timedelta(minutes=10)
+                       ) -> torch.device:
+    """Join the process group of a ``torchrun`` launch and return this
+    rank's device.
+
+    The backend follows ``device``: NCCL for ``cuda`` (rank r on
+    ``cuda:LOCAL_RANK``), gloo for ``cpu``.  A failure to start NCCL raises;
+    CUDA tensors never fall back to gloo.  ``rank`` and ``world_size``
+    default to the ``RANK`` and ``WORLD_SIZE`` that ``torchrun`` sets;
+    ``init_method`` may name a shared file (``file://...``) instead of the
+    ``MASTER_ADDR``/``MASTER_PORT`` rendezvous.  Joining twice is a no-op.
+    """
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("init_process_group('cuda'): torch.cuda.is_available() is False")
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(dev)
+        backend = "nccl"
+    elif dev.type == "cpu":
+        backend = "gloo"
+    else:
+        raise ValueError(f"no process-group backend for device {str(device)!r}")
+    if dist.is_initialized():
+        if dist.get_backend() != backend:
+            raise RuntimeError(f"a {dist.get_backend()} process group is already "
+                               f"initialized; {dev} needs {backend}")
+        return dev
+    rank = int(os.environ.get("RANK", "0")) if rank is None else rank
+    world_size = (int(os.environ.get("WORLD_SIZE", "1")) if world_size is None
+                  else world_size)
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world_size, timeout=timeout,
+                            device_id=dev if backend == "nccl" else None)
+    return dev
+
+
+def device_mesh(mesh: Mesh, device: str | torch.device = "cuda"):
+    """A ``DeviceMesh`` over the initialized process group with ``mesh``'s
+    axis names and sizes; the world must hold exactly ``mesh.size`` ranks."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != mesh.size:
+        raise ValueError(f"mesh {dict(mesh.shape)} needs {mesh.size} processes, "
+                         f"the world has {world}")
+    return init_device_mesh(torch.device(device).type, mesh.dims,
+                            mesh_dim_names=mesh.axis_names)

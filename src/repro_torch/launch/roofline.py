@@ -6,7 +6,7 @@ data sheet's constants (``repro_torch.core.hw``):
 
     compute    = FLOPs / PEAK_FLOPS_BF16
     memory     = (argument + output bytes per device) / HBM_BW
-    collective = 0 until the multi-device slice
+    collective = 0 (the meta trace counts no collective bytes yet)
 
 FLOPs are those ``torch.utils.flop_counter``'s formulas count over the cell's
 step on the meta device (``dryrun.MetaTrace``, equal to ``FlopCounterMode``'s
@@ -30,7 +30,7 @@ from dataclasses import asdict, dataclass
 from repro_torch.core.hw import HBM_BW, NVLINK_BW, PEAK_FLOPS_BF16  # noqa: F401
 
 IDEAL_SPLIT_NOTE = "flops/device = global meta-trace count / chips (ideal split)"
-NO_COLLECTIVES_NOTE = "collective term 0: collectives come with the multi-device slice"
+NO_COLLECTIVES_NOTE = "collective term 0: the meta trace counts no collective bytes yet"
 
 
 @dataclass

@@ -23,6 +23,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers
 from repro_torch.models.transformer import (layer_slice, run_layers, stack_layers,
                                             token_nll, unstack_layers)
+from repro_torch.utils.act_sharding import constrain, unshard
 
 
 # ---------------------------------------------------------------------------
@@ -65,11 +66,15 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> dict:
 # Encoder, decoder layer, head
 # ---------------------------------------------------------------------------
 
-def encode(cfg, params: dict, frames: torch.Tensor, train: bool = True) -> torch.Tensor:
-    """frames (B, T, D) stub embeddings -> encoder states (B, T, D)."""
+def encode(cfg, params: dict, frames: torch.Tensor, train: bool = True,
+           split=None) -> torch.Tensor:
+    """frames (B, T, D) stub embeddings -> encoder states (B, T, D); with a
+    ``split`` each layer's params made whole at use (``transformer.forward``)."""
     x = frames.to(torch.float32)
     pos = torch.arange(x.shape[1], device=x.device)
     for p in unstack_layers(params["enc_blocks"], cfg.n_enc_layers):
+        if split is not None:
+            p = split.layer(p, "enc_blocks")
         h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
         a, _ = layers.attention(cfg, p["attn"], h, pos=pos, is_global=True, causal=False,
                                 train=train)
@@ -138,8 +143,8 @@ def _cross_from_cache(cfg, p: dict, x: torch.Tensor, xk: torch.Tensor,
 def _head(cfg, params: dict, x: torch.Tensor) -> torch.Tensor:
     """Final norm and the tied embedding; padded vocab columns are set to
     the float32 minimum."""
-    x = layers.rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    logits = x @ params["embed"].T
+    x = unshard(layers.rmsnorm(params["ln_f"], x, cfg.norm_eps), 0)   # see transformer._head
+    logits = constrain(x @ constrain(params["embed"], "vocab_rows").T, "logits")
     if cfg.padded_vocab != cfg.vocab_size:
         valid = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
         logits = torch.where(valid, logits, torch.finfo(logits.dtype).min)
@@ -147,7 +152,8 @@ def _head(cfg, params: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _embed(cfg, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return (params["embed"][tokens] * math.sqrt(cfg.d_model)).to(torch.float32)
+    x = (params["embed"][tokens] * math.sqrt(cfg.d_model)).to(torch.float32)
+    return constrain(x, "residual")            # see transformer._embed
 
 
 def _decoder(cfg, params: dict, x: torch.Tensor, enc_out: torch.Tensor | None,
@@ -169,16 +175,21 @@ def _decoder(cfg, params: dict, x: torch.Tensor, enc_out: torch.Tensor | None,
 # ---------------------------------------------------------------------------
 
 def forward(cfg, params: dict, batch: dict, train: bool = True,
-            remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+            remat: bool = False, split=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced logits (B, S, V) of ``batch["tokens"]`` given
     ``batch["frames"]``, and the aux loss (0, as in the reference).
     ``remat`` recomputes each decoder layer in the backward, as the
-    reference does (its encoder is not rematerialized)."""
-    enc_out = encode(cfg, params, batch["frames"], train)
+    reference does (its encoder is not rematerialized).  ``split``: see
+    ``transformer.forward``."""
+    if split is not None:
+        params = split.gather(params, skip=("enc_blocks", "dec_blocks"))
+    enc_out = encode(cfg, params, batch["frames"], train, split=split)
     x = _embed(cfg, params, batch["tokens"])
     pos = torch.arange(x.shape[1], device=x.device)
 
     def layer(i: int, p: dict, xv: torch.Tensor) -> torch.Tensor:
+        if split is not None:
+            p = split.layer(p, "dec_blocks")
         return _dec_block(cfg, p, xv, enc_out, pos=pos, mode="fwd", train=train)[0]
 
     x = run_layers(unstack_layers(params["dec_blocks"], cfg.n_layers), x, layer, remat)
@@ -186,10 +197,10 @@ def forward(cfg, params: dict, batch: dict, train: bool = True,
 
 
 def loss_fn(cfg, params: dict, batch: dict, train: bool = True,
-            remat: bool = False) -> tuple[torch.Tensor, dict]:
+            remat: bool = False, split=None) -> tuple[torch.Tensor, dict]:
     """(nll, {"nll", "aux"}) of a batch with ``labels`` (B, S); no aux term,
     as in the reference."""
-    logits, aux = forward(cfg, params, batch, train, remat=remat)
+    logits, aux = forward(cfg, params, batch, train, remat=remat, split=split)
     nll = token_nll(logits, batch["labels"])
     return nll, {"nll": nll, "aux": aux}
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core import bitlinear, ternary
@@ -25,6 +26,7 @@ from repro_torch.kernels import ops
 from repro_torch.plan import registry
 from repro_torch.plan import runtime as plan_runtime
 from repro_torch.sparse import format as sparse_format
+from repro_torch.utils.act_sharding import constrain, is_dtensor
 
 
 # ---------------------------------------------------------------------------
@@ -114,6 +116,8 @@ def _packed_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     that XLA fuses; eager PyTorch cannot fuse that spelling, so the port
     calls the hand-written kernel.
     """
+    if is_dtensor(p["sign"]) or is_dtensor(x):
+        return _packed_linear_mesh(p, x)
     k = x.shape[-1]
     m = p["scale"].shape[-1]
     n = x.numel() // k
@@ -128,6 +132,74 @@ def _packed_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
             return impl.lower(p, x, lp=lp)
     tw = ternary.TernaryWeights(p["sign"], p["zero"], p["scale"], (k, m))
     return ops.tsar_matmul(x, tw)
+
+
+def _packed_linear_mesh(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """:func:`_packed_linear` with the planes as DTensors on a device mesh
+    placed by ``train.sharding.param_specs`` (the counterpart of the
+    reference's ``shard_map``): ``tsar_matmul`` runs on each rank's local
+    shards (``local_map``).  The data axes keep x's batch sharding and
+    gather any FSDP split of the planes (all-gather at use).  On 'model':
+
+    * column-parallel (planes sharded on M): the kernel runs on the local
+      column slice of the replicated x; the output is sharded on its last
+      dimension;
+    * row-parallel (planes sharded on K/8, x gathered or split to match):
+      the per-row absmax is all-reduced (MAX) first, so each rank quantizes
+      its K slice with the whole row's scale; the kernel runs with unit
+      scales, which returns the int32 partial sums exactly as float32
+      (|sum| <= 127 K < 2**24); these are all-reduced (SUM, exact integers)
+      and scaled ``(S * a_scale) * w_scale``, the kernel's own order.  The
+      result is bit-identical to the unsharded call;
+    * planes not sharded on 'model' (a spec that ``sanitize_spec`` dropped
+      to replicated): the plain unsharded call on each rank.
+    """
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    sign = p["sign"]
+    if not isinstance(sign, DTensor):
+        raise ValueError("packed planes must be DTensors when x is one")
+    mesh = sign.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    mi = names.index("model")
+    m = p["scale"].shape[-1]
+    kind = "replicated"
+    if sign.placements[mi] == Shard(sign.ndim - 1):
+        kind = "col"
+    elif sign.placements[mi] == Shard(sign.ndim - 2):
+        kind = "row"
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+    # Data axes: the batch keeps x's sharding (Shard(0) stays, anything
+    # else is gathered); the weights are replicated over them.
+    xpl = [pl if (i != mi and pl == Shard(0)) else Replicate()
+           for i, pl in enumerate(x.placements)]
+    rep = [Replicate()] * mesh.ndim
+    wpl, spl, opl = list(rep), list(rep), list(xpl)
+    if kind == "col":
+        wpl[mi], spl[mi], opl[mi] = Shard(sign.ndim - 1), Shard(0), Shard(x.ndim - 1)
+    elif kind == "row":
+        wpl[mi], xpl[mi] = Shard(sign.ndim - 2), Shard(x.ndim - 1)
+    group = mesh.get_group("model") if kind == "row" else None
+
+    def local(xl, s, z, sc):
+        if kind != "row":
+            tw = ternary.TernaryWeights(s, z, sc, (xl.shape[-1], sc.shape[-1]))
+            return ops.tsar_matmul(xl, tw)
+        x2 = xl.reshape(-1, xl.shape[-1]).to(torch.float32)
+        absmax = torch.amax(torch.abs(x2), dim=-1, keepdim=True)
+        dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=group)
+        a_q, a_scale = ternary.quantize_activations(x2, absmax=absmax)
+        tw = ternary.TernaryWeights(s, z, torch.ones_like(sc), (xl.shape[-1], m))
+        acc = ops.tsar_matmul_quantized(a_q, torch.ones_like(a_scale), tw)
+        dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=group)
+        return ((acc * a_scale) * sc).reshape(tuple(xl.shape[:-1]) + (m,))
+
+    fn = local_map(local, out_placements=list(opl),
+                   in_placements=(tuple(xpl), tuple(wpl), tuple(wpl), tuple(spl)),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(x, sign, p["zero"], p["scale"])
 
 
 def pack_linear(p: dict, lp=None, *, name: str | None = None,
@@ -242,12 +314,35 @@ def write_rows(c: torch.Tensor, u: torch.Tensor, start: torch.Tensor) -> torch.T
     rows ``u`` (B, S, Hk, Dh) written contiguously from ``start`` (B,).  Like
     the reference's ``dynamic_update_slice``, a start past ``T - S`` is
     clamped so the rows fit."""
+    if is_dtensor(c):
+        return _write_rows_mesh(c, u, start)
     b, s = u.shape[0], u.shape[1]
     start = start.to(device=c.device, dtype=torch.long).clamp(0, c.shape[1] - s)
     rows = start[:, None] + torch.arange(s, device=c.device)
     out = c.clone()
     out[torch.arange(b, device=c.device)[:, None], rows] = u.to(c.dtype)
     return out
+
+
+def _write_rows_mesh(c, u: torch.Tensor, start: torch.Tensor):
+    """:func:`write_rows` of a cache view that is a DTensor: DTensor has no
+    rule for an in-place ``index_put_`` into a batch-sharded tensor, so each
+    rank writes its own block (``local_map``), the rows ``u`` and ``start``
+    split as the cache is.  A sequence-sharded cache is gathered along the
+    sequence first and split again after."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = c.device_mesh
+    cpl = tuple(Replicate() if pl == Shard(1) else pl for pl in c.placements)
+    spl = tuple(Shard(0) if pl == Shard(0) else Replicate() for pl in cpl)
+    if not isinstance(start, DTensor):
+        start = DTensor.from_local(start.to(device=u.device, dtype=torch.long).expand(c.shape[0]),
+                                   mesh, (Replicate(),) * mesh.ndim, run_check=False)
+    fn = local_map(write_rows, out_placements=list(cpl), in_placements=(cpl, cpl, spl),
+                   device_mesh=mesh, redistribute_inputs=True)
+    out = fn(c, u, start)
+    return out if cpl == tuple(c.placements) else out.redistribute(mesh, c.placements)
 
 
 def _windowed(cfg, valid: torch.Tensor, kpos: torch.Tensor, qpos: torch.Tensor,
@@ -292,7 +387,6 @@ def attention(cfg, p: dict, x: torch.Tensor, *, pos: torch.Tensor, is_global: bo
     with ``return_kv``; the view is None without a cache.
     """
     h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    g = h // hk
     b, s, _ = x.shape
 
     src = x if kv_x is None else kv_x
@@ -305,6 +399,10 @@ def attention(cfg, p: dict, x: torch.Tensor, *, pos: torch.Tensor, is_global: bo
     if kv_x is None:                                    # no RoPE on cross-attention
         q = rope(q, pos, cfg.rope_theta)
         k = rope(k, pos, cfg.rope_theta)
+    # Pin head-sharded layouts on a mesh (identity without one).
+    q = constrain(q, "attn_q")
+    k = constrain(k, "attn_kv")
+    v = constrain(v, "attn_kv")
 
     new_cache = None
     if cache is not None and slot is not None:
@@ -364,20 +462,76 @@ def attention(cfg, p: dict, x: torch.Tensor, *, pos: torch.Tensor, is_global: bo
     # gives every layout the same bits with high probability (not
     # certainty: a float64 value within its own error of a float32 rounding
     # boundary can still round either way).
-    qg = q.reshape(b, s, hk, g, dh)
-    k64, v64 = k.to(torch.float64), v.to(torch.float64)
-    # Long sequences: one query block at a time, each against its full key
-    # row (exact), so the (Sq, T) score tile stays bounded.
-    if s > Q_CHUNK and s % Q_CHUNK == 0 and mask is not None:
-        ctx = torch.cat([attend_core(cfg, qg[:, i:i + Q_CHUNK], k64, v64,
-                                     mask[..., i:i + Q_CHUNK, :], x.dtype)
-                         for i in range(0, s, Q_CHUNK)], dim=1)
+    if is_dtensor(q):
+        ctx = constrain(_context_mesh(cfg, q, k, v, mask, x.dtype), "attn_q")
     else:
-        ctx = attend_core(cfg, qg, k64, v64, mask, x.dtype)
+        ctx = _context(cfg, q, k, v, mask, x.dtype)
     out = linear(p["wo"], ctx.reshape(x.shape[0], x.shape[1], h * dh), train)
     if return_kv:
         return out, (k, v)
     return out, new_cache
+
+
+def _context(cfg, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             mask: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor:
+    """The attention context (B, S, Hk, G, Dh) of q (B, S, H, Dh) against
+    k, v (B, T, Hk, Dh) under ``mask``."""
+    b, s, h, dh = q.shape
+    hk = k.shape[2]
+    qg = q.reshape(b, s, hk, h // hk, dh)
+    k64, v64 = k.to(torch.float64), v.to(torch.float64)
+    # Long sequences: one query block at a time, each against its full key
+    # row (exact), so the (Sq, T) score tile stays bounded.
+    if s > Q_CHUNK and s % Q_CHUNK == 0 and mask is not None:
+        return torch.cat([attend_core(cfg, qg[:, i:i + Q_CHUNK], k64, v64,
+                                      mask[..., i:i + Q_CHUNK, :], dtype)
+                          for i in range(0, s, Q_CHUNK)], dim=1)
+    return attend_core(cfg, qg, k64, v64, mask, dtype)
+
+
+def _context_mesh(cfg, q, k, v, mask, dtype):
+    """:func:`_context` of DTensors, per rank on its own block
+    (``local_map``): batch rows split over the data axes, heads over
+    'model' where the KV heads divide (a query head's group stays with its
+    KV head), else queries split on their sequence axis against whole keys;
+    the context comes back (B, S, H, Dh) in those placements.  Each query
+    row's sums are the unsharded call's, and DTensor's einsum strategies
+    are not needed (some versions refuse a head-sharded score einsum)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    b, s = q.shape[0], q.shape[1]
+    qpl, kpl, mpl = [], [], []
+    if mask is not None and not is_dtensor(mask):
+        mask = DTensor.from_local(mask, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+    for i, pl in enumerate(q.placements):
+        if pl == Shard(0):
+            qpl.append(Shard(0))
+            kpl.append(Shard(0))
+            mpl.append(Shard(0) if mask is not None and mask.shape[0] == b else Replicate())
+        elif pl == Shard(2) and k.shape[2] % mesh.shape[i] == 0:
+            qpl.append(Shard(2))
+            kpl.append(Shard(2))
+            mpl.append(Replicate())
+        elif pl == Shard(1) and s % mesh.shape[i] == 0:
+            qpl.append(Shard(1))
+            kpl.append(Replicate())
+            mpl.append(Shard(mask.ndim - 2) if mask is not None and mask.shape[-2] == s
+                       else Replicate())
+        else:
+            qpl.append(Replicate())
+            kpl.append(Replicate())
+            mpl.append(Replicate())
+
+    def local(ql, kl, vl, ml):
+        return _context(cfg, ql, kl, vl, ml, dtype).reshape(ql.shape)
+
+    fn = local_map(local, out_placements=list(qpl),
+                   in_placements=(tuple(qpl), tuple(kpl), tuple(kpl),
+                                  None if mask is None else tuple(mpl)),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(q, k, v, mask)
 
 
 def attend_core(cfg, qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

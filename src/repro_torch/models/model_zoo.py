@@ -42,10 +42,12 @@ def forward(cfg, params, batch, train=True, remat=False):
     return _mod(cfg).forward(cfg, params, batch, train, remat=remat)
 
 
-def loss_fn(cfg, params, batch, train=True, remat=False):
+def loss_fn(cfg, params, batch, train=True, remat=False, split=None):
     """(loss, {"nll", "aux"}); see ``transformer.loss_fn`` and
-    ``encdec.loss_fn``."""
-    return _mod(cfg).loss_fn(cfg, params, batch, train, remat=remat)
+    ``encdec.loss_fn``.  ``split`` (a ``train.fsdp.Split``): ``params``
+    are this rank's shards and ``batch`` its rows of a step spread over a
+    mesh."""
+    return _mod(cfg).loss_fn(cfg, params, batch, train, remat=remat, split=split)
 
 
 def init_cache(cfg, batch_size: int, max_len: int, dtype=torch.float32, device="cuda"):

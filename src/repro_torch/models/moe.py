@@ -35,8 +35,11 @@ decoded weights out (``ROADMAP.md`` lists the grouped-expert kernel that
 would keep them in registers).  The shared experts go through
 ``layers.mlp``, so frozen ones run ``tsar_matmul``.
 
-The reference's ``shard_map`` expert-parallel branch belongs to the
-multi-device slice.
+On a registered device mesh (``utils.act_sharding.set_mesh``), frozen
+experts at inference run the reference's expert-parallel branch: each rank
+decodes its own experts' planes and runs their three products on its
+(data, model) block of the dispatched tokens (``local_map``, the
+counterpart of the reference's ``shard_map``); ``EP_CALLS`` counts them.
 """
 from __future__ import annotations
 
@@ -47,6 +50,11 @@ import torch.nn.functional as F
 
 from repro_torch.core import bitlinear, ternary
 from repro_torch.models import layers
+from repro_torch.utils import act_sharding
+from repro_torch.utils.act_sharding import constrain
+
+# Calls of the expert-parallel branch of :func:`_expert_ffn`.
+EP_CALLS = {"expert_parallel": 0}
 
 # Dispatch-group size: a call row longer than this (and a multiple of it) is
 # regrouped into rows of this many tokens, so the (rows, G, E, C) dispatch
@@ -106,7 +114,8 @@ def _expert_weights(p: dict, train: bool = True) -> torch.Tensor:
         t, scale = ternary.absmean_ternarize(p["w"])
         return t * scale[..., None, :]
     if "sign" in p:
-        return _decode_planes(p["sign"], p["zero"], p["scale"])
+        return constrain(_decode_planes(p["sign"], p["zero"], p["scale"]),
+                         "expert_weights")
     raise ValueError(f"unrecognized expert params: {list(p)}")
 
 
@@ -134,12 +143,54 @@ def _silu_bf16(x: torch.Tensor) -> torch.Tensor:
 
 def _expert_ffn(p: dict, xe: torch.Tensor, train: bool = True) -> torch.Tensor:
     """Routed-expert FFN on dispatched tokens xe (B, E, C, D) bf16 ->
-    (B, E, C, D) bf16."""
+    (B, E, C, D) bf16.
+
+    For frozen experts at inference on a registered mesh (E divisible by
+    'model', B by the data axes, xe a DTensor), the decode and the three
+    products run per rank on its local experts and its block of xe
+    (:func:`_expert_ffn_local`)."""
+    mesh = act_sharding.get_mesh()
+    if (mesh is not None and "sign" in p["w_gate"] and not train
+            and act_sharding.is_dtensor(xe)
+            and xe.shape[1] % act_sharding._size(mesh, "model") == 0
+            and xe.shape[0] % act_sharding._dsize(mesh) == 0):
+        return _expert_ffn_local(p, xe, mesh)
+    return _expert_math(p, xe, train)
+
+
+def _expert_math(p: dict, xe: torch.Tensor, train: bool) -> torch.Tensor:
     wg, wu, wd = (_expert_weights(p[n], train).to(torch.bfloat16)
                   for n in ("w_gate", "w_up", "w_down"))
     h = _silu_bf16(_bf16_einsum("becd,edf->becf", xe, wg)) * _bf16_einsum(
         "becd,edf->becf", xe, wu)
     return _bf16_einsum("becf,efd->becd", h, wd)
+
+
+def _expert_ffn_local(p: dict, xe, mesh):
+    """The expert-parallel branch: fully manual over (data..., model), as
+    the reference's ``shard_map`` is.  xe is sharded (data axes, 'model')
+    on (B, E); the planes and scales on E over 'model', replicated over
+    the data axes: each rank decodes only its own experts."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    names = tuple(mesh.mesh_dim_names)
+    dax = act_sharding._dax(mesh)
+    xpl = tuple(Shard(1) if n == "model" else Shard(0) if n in dax else Replicate()
+                for n in names)
+    ew = tuple(Shard(0) if n == "model" else Replicate() for n in names)
+
+    def local_block(xe_l, gs, gz, gsc, us, uz, usc, ds, dz, dsc):
+        EP_CALLS["expert_parallel"] += 1
+        planes = {"w_gate": {"sign": gs, "zero": gz, "scale": gsc},
+                  "w_up": {"sign": us, "zero": uz, "scale": usc},
+                  "w_down": {"sign": ds, "zero": dz, "scale": dsc}}
+        return _expert_math(planes, xe_l, train=False)
+
+    fn = local_map(local_block, out_placements=list(xpl), in_placements=(xpl,) + (ew,) * 9,
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(xe, *(p[n][leaf] for n in ("w_gate", "w_up", "w_down")
+                    for leaf in ("sign", "zero", "scale")))
 
 
 def _top_k(gates: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -157,7 +208,7 @@ def _router_logits(p: dict, x: torch.Tensor) -> torch.Tensor:
     return (x.to(acc) @ p["wd"].to(acc)).to(torch.float32)
 
 
-def _route(cfg, p: dict, x: torch.Tensor) -> dict:
+def _route(cfg, p: dict, x: torch.Tensor, split=None) -> dict:
     """Router of one call, x (B, S, D) -> ``gates`` (B, S, E) f32, the
     renormalised ``topw`` and ``topi`` (B, S, k), the one-hot ``dispatch``
     (B, S, E, C) bf16 and ``combine`` (B, S, E, C) f32 tensors with
@@ -174,6 +225,8 @@ def _route(cfg, p: dict, x: torch.Tensor) -> dict:
     # Load-balancing auxiliary loss (Switch): E * sum_e f_e * P_e.
     me = torch.mean(gates, dim=(0, 1))
     ce = torch.mean(torch.sum(F.one_hot(topi, e).to(gates.dtype), dim=2), dim=(0, 1))
+    if split is not None:        # over the whole batch, not this rank's rows
+        me, ce = split.batch_mean(me), split.batch_mean(ce)
     aux = e * torch.sum(me * ce)
 
     # Position-in-expert via per-slot cumsum (slots in priority order).  A
@@ -195,17 +248,24 @@ def _route(cfg, p: dict, x: torch.Tensor) -> dict:
             "combine": combine, "aux": aux.to(torch.float32)}
 
 
-def moe_forward(cfg, p: dict, x: torch.Tensor,
-                train: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_forward(cfg, p: dict, x: torch.Tensor, train: bool = True,
+                split=None) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (y (B, S, D), the Switch load-balancing aux loss, a
-    float32 scalar)."""
+    float32 scalar).  With a ``split`` (``train.fsdp.Split``) x is this
+    rank's rows of the batch, and the aux loss takes its statistics over
+    the whole batch."""
     b0, s0, d = x.shape
     if s0 > MAX_GROUP and s0 % MAX_GROUP == 0:
         x = x.reshape(b0 * (s0 // MAX_GROUP), MAX_GROUP, d)
-    r = _route(cfg, p, x)
+    r = _route(cfg, p, x, split)
     xe = _bf16_einsum("bsec,bsd->becd", r["dispatch"], x.to(torch.bfloat16))  # (B,E,C,D)
-    out_e = _expert_ffn(p, xe, train)
-    y = _bf16_einsum("bsec,becd->bsd", r["combine"].to(torch.bfloat16), out_e).to(x.dtype)
+    xe = constrain(xe, "moe")        # expert axis on 'model': the dispatch is an all-to-all
+    out_e = constrain(_expert_ffn(p, xe, train), "moe")
+    # On a mesh the expert axis is gathered before the combine: summed as
+    # per-rank partials, the combine's float32 sum over the experts would
+    # take another order and move bf16 roundings.
+    y = _bf16_einsum("bsec,becd->bsd", r["combine"].to(torch.bfloat16),
+                     act_sharding.unshard(out_e, 1)).to(x.dtype)
     if cfg.n_shared_experts:
         y = y + layers.mlp(p["shared"], x, train)
     return y.reshape(b0, s0, d), r["aux"]

@@ -39,6 +39,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.utils.act_sharding import constrain, unshard
 
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
@@ -140,8 +141,8 @@ def unstack_layers(tree, n: int) -> list:
 
 def _block(cfg, p: dict, x: torch.Tensor, *, flag: bool, pos: torch.Tensor, mode: str,
            train: bool = False, cache: dict | None = None, cache_len=None,
-           slot: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor | float,
-                                                      dict | None]:
+           slot: torch.Tensor | None = None, split=None
+           ) -> tuple[torch.Tensor, torch.Tensor | float, dict | None]:
     """One layer.  ``mode``: ``"fwd"`` (no cache), ``"prefill"`` (the
     prompt's K/V written to ``cache`` from row 0, the SSM conv tail and
     final state returned) or ``"decode"`` (attention against ``cache`` with
@@ -187,7 +188,7 @@ def _block(cfg, p: dict, x: torch.Tensor, *, flag: bool, pos: torch.Tensor, mode
 
     h2 = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
     if cfg.is_moe:
-        y, aux = moe_lib.moe_forward(cfg, p["moe"], h2, train)
+        y, aux = moe_lib.moe_forward(cfg, p["moe"], h2, train, split)
     else:
         y = layers.mlp(p["mlp"], h2, train)
     return x + y, aux, (new_cache or None)
@@ -222,10 +223,15 @@ def _layers(cfg, params: dict, x: torch.Tensor, cache: dict | None,
 
 def _head(cfg, params: dict, x: torch.Tensor) -> torch.Tensor:
     x = layers.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    # On a mesh the batch rows are gathered first (identity off one): a
+    # float32 matmul sums one row (a gemv) in another order than several,
+    # so the logits would follow the batch split.
+    x = unshard(x, 0)
     if cfg.tie_embeddings:
-        logits = x @ params["embed"].T
+        logits = x @ constrain(params["embed"], "vocab_rows").T
     else:
-        logits = x @ params["lm_head"]["wd"].to(x.dtype)
+        logits = x @ constrain(params["lm_head"]["wd"], "vocab_cols").to(x.dtype)
+    logits = constrain(logits, "logits")
     logits = layers.softcap(logits, cfg.logit_softcap)
     if cfg.padded_vocab != cfg.vocab_size:   # mask the padding columns
         valid = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
@@ -248,7 +254,9 @@ def _embed(cfg, params: dict, tokens: torch.Tensor,
         wd = params["frontend_proj"]["wd"]
         proj = (patches.to(torch.float64) @ wd.to(torch.float64)).to(torch.float32)
         x = torch.cat([proj, x], dim=1)
-    return x.to(torch.float32)
+    # On a mesh: the residual stream batch-sharded, replicated on 'model'
+    # (DTensor's gather from a vocab-sharded table would leave d_model split).
+    return constrain(x.to(torch.float32), "residual")
 
 
 # ---------------------------------------------------------------------------
@@ -270,7 +278,7 @@ def run_layers(blocks: list, carry, layer_fn, remat: bool):
 
 
 def forward(cfg, params: dict, batch: dict, train: bool = True,
-            remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+            remat: bool = False, split=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced logits (B, S, V) of ``batch["tokens"]`` (B, S), and the
     auxiliary loss summed over the layers (a float32 scalar tensor, 0
     without MoE layers).  A VLM batch's ``patches`` add P leading
@@ -278,15 +286,20 @@ def forward(cfg, params: dict, batch: dict, train: bool = True,
     (module docstring); ``remat`` recomputes each layer's activations in the
     backward (:func:`run_layers`).  The stacked layer params are unbound
     once (:func:`unstack_layers`), so the backward stacks each leaf's
-    gradient once."""
+    gradient once.  With a ``split`` (``train.fsdp.Split``) the params are
+    this rank's shards, made whole at use: a layer's inside the layer."""
     _check_family(cfg, "forward")
+    if split is not None:
+        params = split.gather(params, skip=("blocks",))
     x = _embed(cfg, params, batch["tokens"], batch.get("patches"))
     pos = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def layer(i: int, p: dict, carry: tuple) -> tuple:
+        if split is not None:
+            p = split.layer(p, "blocks")
         xv, a, _ = _block(cfg, p, carry[0], flag=cfg.layer_is_global(i), pos=pos,
-                          mode="fwd", train=train)
+                          mode="fwd", train=train, split=split)
         return xv, carry[1] + a
 
     x, aux = run_layers(unstack_layers(params["blocks"], cfg.n_layers), (x, aux),
@@ -304,10 +317,10 @@ def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def loss_fn(cfg, params: dict, batch: dict, train: bool = True,
-            remat: bool = False) -> tuple[torch.Tensor, dict]:
+            remat: bool = False, split=None) -> tuple[torch.Tensor, dict]:
     """(``nll + 0.01 * aux``, {"nll", "aux"}) of a batch with ``labels``
     (B, S); a VLM's leading patch positions are not scored."""
-    logits, aux = forward(cfg, params, batch, train, remat=remat)
+    logits, aux = forward(cfg, params, batch, train, remat=remat, split=split)
     labels = batch["labels"]
     nll = token_nll(logits[:, -labels.shape[1]:, :], labels)
     return nll + 0.01 * aux, {"nll": nll, "aux": aux}

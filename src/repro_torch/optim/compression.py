@@ -4,22 +4,33 @@ all-reduce (port of ``repro/optim/compression.py``).
 ``compress_leaf`` quantizes ``g + err`` to int8 with one absmax scale and
 returns the rounding error, which the next step adds back (EF-SGD), so the
 quantization error does not accumulate.  ``psum_compressed`` is the
-compressed mean over the data-parallel processes.  This module runs it for
-a world of one process, where it is the reference's round trip exactly:
-int8 codes times the scale, rounded to bf16 as the reference's all-gather
-phase sends them; the ``torch.distributed`` exchange (reduce-scatter of
-int8, all-gather of bf16) comes with the multi-device slice (ROADMAP.md,
-Queue 1, item 10) and raises until then.
+compressed mean over the processes of a ``torch.distributed`` group,
+decomposed as the reference's is:
+
+    reduce-scatter phase:  all_to_all of int8 chunks   (1 byte/elem on wire)
+    local reduction:       dequant + f32 sum in rank order, / N
+    all-gather phase:      bf16 re-broadcast           (2 bytes/elem on wire)
+
+about 3 bytes per element on the wire against 8 for a float32 ring
+all-reduce.  Leaves under ``MIN_COMPRESSED`` elements take a float32 mean.
+Without a process group the same arithmetic runs locally (the codes times
+the scale, rounded to bf16); a group of one rank runs the exchange, with
+the same result.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from repro_torch.utils.tree import tree_map
 
 # Leaves smaller than this take a plain float32 mean (not worth compressing).
 MIN_COMPRESSED = 1024
+# Elements per slice of the dequantizing sum (bounds its float64 temporaries).
+_SLICE = 1 << 24
+# ``all_gather_single`` supersedes ``all_gather_into_tensor`` in newer torch.
+_all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 
 def compress_leaf(g: torch.Tensor, err: torch.Tensor
@@ -39,26 +50,69 @@ def world_size(group=None) -> int:
     return 1
 
 
+def _allreduce_int8(q: torch.Tensor, scale: torch.Tensor, group, n: int) -> torch.Tensor:
+    """Mean over the ``n`` processes of ``group`` via an int8 reduce-scatter
+    and a bf16 all-gather; returns the dequantized mean (float32), shaped
+    as ``q``."""
+    flat = q.reshape(-1)
+    flat = F.pad(flat, (0, (-flat.numel()) % n))
+    chunks = flat.reshape(n, -1).contiguous()                    # (N, C)
+    # Reduce-scatter phase: after the all-to-all, row j holds rank j's copy
+    # of this rank's chunk.
+    recv = torch.empty_like(chunks)
+    dist.all_to_all_single(recv, chunks, group=group)
+    scales = torch.empty(n, dtype=torch.float32, device=q.device)
+    _all_gather(scales, scale.reshape(1).to(torch.float32), group=group)
+    # In rank order, each code times its scale added with one rounding to
+    # float32 (a fused multiply-add: the product of an int8 code and a
+    # float32 scale is exact in float64), as XLA computes the reference's
+    # ``sum(recv * scales, axis=0)``; in slices, to bound the float64
+    # temporaries of a large leaf.
+    summed = torch.empty(chunks.shape[1], dtype=torch.float32, device=q.device)
+    for lo in range(0, summed.numel(), _SLICE):
+        acc = torch.zeros(min(_SLICE, summed.numel() - lo), dtype=torch.float64,
+                          device=q.device)
+        for j in range(n):
+            acc = (acc + recv[j, lo:lo + acc.numel()].to(torch.float64)
+                   * scales[j].to(torch.float64)).to(torch.float32).to(torch.float64)
+        summed[lo:lo + acc.numel()] = acc
+    summed /= n
+    # All-gather phase in bf16.
+    gathered = torch.empty(n * summed.numel(), dtype=torch.bfloat16, device=q.device)
+    _all_gather(gathered, summed.to(torch.bfloat16), group=group)
+    return gathered.to(torch.float32)[:q.numel()].reshape(q.shape)
+
+
 def psum_compressed(grads, err_buf, group=None) -> tuple[dict, dict]:
     """Compressed mean of ``grads`` over the processes of ``group``, and the
-    new error buffers.  One process only (see the module docstring)."""
+    new error buffers (nested dicts of tensors, every process passing the
+    same structure).  Both are written in place into ``grads`` and
+    ``err_buf`` and returned (the port's convention for optimizer state: a
+    full-width bitnet-2b-4t step has no room for second copies of its 11 GB
+    of gradients and 11 GB of error buffers); a caller that needs its
+    inputs afterwards passes copies."""
     n = world_size(group)
-    if n != 1:
-        raise NotImplementedError(
-            f"psum_compressed over {n} processes: the torch.distributed int8 "
-            "all-reduce is not ported yet (ROADMAP.md, Queue 1, item 10)")
-
+    exchange = dist.is_available() and dist.is_initialized()
     out_g, out_e = {}, {}
     for k, g in grads.items():
         e = err_buf[k]
         if isinstance(g, dict):
             out_g[k], out_e[k] = psum_compressed(g, e, group)
-        elif g.numel() < MIN_COMPRESSED:
+        elif g.numel() < MIN_COMPRESSED:     # tiny leaves: a float32 mean
+            if exchange:
+                total = g.to(torch.float32).clone()
+                dist.all_reduce(total, group=group)
+                g.copy_(total / n)
             out_g[k], out_e[k] = g, e
         else:
-            q, scale, out_e[k] = compress_leaf(g, e)      # the mean over one process:
-            g_hat = q.to(torch.float32) * scale          # its own dequantized codes
-            out_g[k] = g_hat.to(torch.bfloat16).to(torch.float32).to(g.dtype)
+            q, scale, new_err = compress_leaf(g, e)
+            out_e[k] = e.copy_(new_err)
+            del new_err
+            if exchange:
+                g_hat = _allreduce_int8(q, scale, group, n)
+            else:                             # no process group: its own
+                g_hat = (q.to(torch.float32) * scale).to(torch.bfloat16).to(torch.float32)
+            out_g[k] = g.copy_(g_hat)
     return out_g, out_e
 
 

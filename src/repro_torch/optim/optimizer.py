@@ -76,12 +76,16 @@ def adamw_init(params, moment_dtype=torch.float32) -> AdamWState:
                       count=torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def adamw_update(cfg: OptConfig, grads, state: AdamWState, params):
+def adamw_update(cfg: OptConfig, grads, state: AdamWState, params,
+                 norm: torch.Tensor | None = None):
     """One AdamW step: ``params`` and ``state``'s moments are updated in
     place (the gradients are read, not changed).  Returns (params, the new
     ``AdamWState``, {"grad_norm", "lr"}), as the reference's pure function
-    does."""
-    norm = global_norm(grads)
+    does.  ``norm`` is the gradients' global norm where ``grads`` (and
+    ``params``, the moments) are one process's shards of larger tensors;
+    by default it is computed from ``grads``."""
+    if norm is None:
+        norm = global_norm(grads)
     clip = torch.clamp(cfg.clip_norm / (norm + 1e-9), max=1.0)
     count = state.count + 1
     b1, b2 = cfg.betas

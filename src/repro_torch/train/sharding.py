@@ -21,12 +21,22 @@ is always replicated).
 * decode KV caches shard batch on 'data' when batch >= |data|, otherwise
   the sequence axis (sequence parallelism for a single long request).
 
-Placing tensors by these specs (``to_named``) comes with the multi-device
-slice.
+Every rule takes a :class:`~repro_torch.launch.mesh.Mesh` description or a
+``torch.distributed`` ``DeviceMesh``.  :func:`to_named` turns specs into
+DTensor placements on a ``DeviceMesh`` (the reference's ``NamedSharding``)
+and :func:`place` puts a tree's tensors there.
 """
 from __future__ import annotations
 
-from repro_torch.launch.mesh import Mesh
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.launch.mesh import Mesh, describe
+
+
+def _as_mesh(mesh) -> Mesh:
+    return mesh if isinstance(mesh, Mesh) else describe(mesh)
 
 
 def spec(*entries) -> tuple:
@@ -110,6 +120,8 @@ def param_specs(params, mesh: Mesh | None = None, fsdp: bool = False) -> dict:
     51865, head counts below |model|), and the '__data__' placeholder
     resolves to the mesh's (pod,)data axes.
     """
+    mesh = None if mesh is None else _as_mesh(mesh)
+
     def one(path, leaf):
         s = param_spec(path, leaf, fsdp=fsdp)
         return s if mesh is None else sanitize_spec(mesh, tuple(leaf.shape), s)
@@ -119,6 +131,7 @@ def param_specs(params, mesh: Mesh | None = None, fsdp: bool = False) -> dict:
 
 def sanitize_spec(mesh: Mesh, shape: tuple, spec_in: tuple) -> tuple:
     """Drop shardings that don't divide; resolve the '__data__' placeholder."""
+    mesh = _as_mesh(mesh)
     dax = _data_axes(mesh)
     dsz = _axes_size(mesh, dax)
     out = []
@@ -138,6 +151,7 @@ def sanitize_spec(mesh: Mesh, shape: tuple, spec_in: tuple) -> tuple:
 
 def batch_spec(mesh: Mesh, batch_size: int) -> tuple:
     """Token batches: shard batch over the (pod, data) axes when divisible."""
+    mesh = _as_mesh(mesh)
     dax = _data_axes(mesh)
     if batch_size % _axes_size(mesh, dax) == 0:
         return spec(dax, None)
@@ -164,6 +178,7 @@ def cache_spec(mesh: Mesh, leaf_shape: tuple, n_kv_heads: int) -> tuple:
     axis 2.  Then one inner axis on 'model': heads, else the sequence axis
     (the split-KV decode scheme), else head_dim.
     """
+    mesh = _as_mesh(mesh)
     dax = _data_axes(mesh)
     dsz = _axes_size(mesh, dax)
     msz = mesh.shape["model"]
@@ -189,8 +204,99 @@ def cache_specs(mesh: Mesh, cache, n_kv_heads: int) -> dict:
 def shard_bytes(mesh: Mesh, leaf, leaf_spec: tuple) -> int:
     """Bytes of one device's shard of ``leaf`` under a sanitized spec (every
     sharded dimension divides its axes)."""
+    mesh = _as_mesh(mesh)
     parts = 1
     for s in leaf_spec:
         if s is not None:
             parts *= _axes_size(mesh, s if isinstance(s, tuple) else (s,))
     return leaf.numel() * leaf.element_size() // parts
+
+
+# --- placement on a DeviceMesh ----------------------------------------------
+
+class NamedSharding(NamedTuple):
+    """A ``DeviceMesh`` and one DTensor placement per mesh axis: where a
+    tensor lives (the reference's ``jax.sharding.NamedSharding``)."""
+
+    device_mesh: object
+    placements: tuple
+
+
+def placements(mesh, leaf_spec: tuple, ndim: int) -> tuple:
+    """DTensor placements of a spec: ``Shard(dim)`` on each mesh axis that
+    names dimension ``dim``, ``Replicate()`` on the others.  An entry such as
+    ``("pod", "data")`` shards one dimension over both axes, major to minor,
+    as ``PartitionSpec`` does; DTensor splits a dimension sharded on several
+    mesh axes in mesh-axis order, so the entry's axes must come in that
+    order."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(_as_mesh(mesh).axis_names)
+    out: list = [Replicate()] * len(names)
+    for dim, entry in enumerate(tuple(leaf_spec) + (None,) * (ndim - len(leaf_spec))):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry} splits dimension {dim} against the mesh "
+                             f"axis order {names}")
+        for i in idx:
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+def _map_specs(fn, specs, tree=None):
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, v, None if tree is None else tree[k])
+                for k, v in specs.items()}
+    return fn(specs, tree)
+
+
+def to_named(device_mesh, specs, tree=None):
+    """The tree of :class:`NamedSharding` for a tree of specs.  A spec
+    shorter than its tensor's rank is padded with None; pass ``tree`` (the
+    tensors) where the specs are not written out to full rank."""
+    def one(s, leaf):
+        nd = len(s) if leaf is None else leaf.ndim
+        return NamedSharding(device_mesh, placements(device_mesh, s, nd))
+
+    return _map_specs(one, specs, tree)
+
+
+def local_shard(t, device_mesh, placements_: tuple):
+    """This rank's shard of the full tensor ``t`` under ``placements_`` as a
+    view of ``t`` (no copy): each sharded dimension narrowed to this rank's
+    block, mesh axes in order, as DTensor splits a dimension sharded on
+    several axes.  Every sharded dimension divides its axes (specs are
+    sanitized)."""
+    coord = device_mesh.get_coordinate()
+    for i, pl in enumerate(placements_):
+        if pl.is_shard():
+            size = t.shape[pl.dim] // device_mesh.shape[i]
+            t = t.narrow(pl.dim, coord[i] * size, size)
+    return t
+
+
+def place(tree, device_mesh, specs):
+    """``tree``'s tensors as DTensors on ``device_mesh`` by ``specs``.
+
+    Every rank holds the same full tensors (built from the same seed, or
+    read from the same checkpoint) and keeps its own slice: no data moves.
+    The slice is a copy where it is a part of the tensor (so the caller
+    can drop the whole), the tensor itself where it is all of it (every
+    sharding axis has one rank: no second copy).  A leaf that is already
+    a DTensor is redistributed instead."""
+    from torch.distributed.tensor import DTensor
+
+    def one(s, leaf):
+        pl = placements(device_mesh, s, leaf.ndim)
+        if isinstance(leaf, DTensor):
+            return leaf.redistribute(device_mesh, pl)
+        local = local_shard(leaf, device_mesh, pl)
+        if local.numel() < leaf.numel():
+            local = local.clone(memory_format=torch.contiguous_format)
+        return DTensor.from_local(local, device_mesh, pl, run_check=False,
+                                  shape=leaf.shape, stride=leaf.stride())
+
+    return _map_specs(one, specs, tree)

@@ -1,0 +1,407 @@
+"""Several gloo ranks on the CPU for the port's multi-process tests.
+
+:func:`run_ranks` starts ``n`` spawned processes that join one gloo
+process group through a file in the test's directory (so parallel test
+workers never share a port), each on one torch thread, runs a function of
+this module on every rank and returns what each rank returned.  A rank
+that fails fails the call at once (the others are killed), and the whole
+call has its own timeout, so a hung collective fails its test instead of
+running out the suite's time.
+
+The rank functions import torch and the port only: the reference runs in
+its own subprocess (``tests/_jax_mesh_ref.py``).
+"""
+from __future__ import annotations
+
+import os
+import time
+import traceback
+import uuid
+
+import numpy as np
+import torch
+import torch.multiprocessing as mp
+
+TIMEOUT_S = 120.0
+
+
+def run_ranks(fn, n: int, workdir, *args, timeout: float = TIMEOUT_S) -> list:
+    """``fn(rank, n, *args)`` on ``n`` gloo ranks; the list of the ranks'
+    return values (``torch.save``-able)."""
+    tag = uuid.uuid4().hex[:8]
+    root = os.path.join(str(workdir), f"ranks_{fn.__name__}_{n}_{tag}")
+    os.makedirs(root)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_entry, args=(fn, r, n, root, args), daemon=True)
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.is_alive() for p in procs):
+            failed = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
+            if failed:
+                raise RuntimeError(f"rank {failed[0]} of {fn.__name__} failed:\n"
+                                   + _err(root, failed[0]))
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{fn.__name__} on {n} ranks passed {timeout} s")
+            time.sleep(0.05)
+        for r, p in enumerate(procs):
+            if p.exitcode != 0:
+                raise RuntimeError(f"rank {r} of {fn.__name__} exited {p.exitcode}:\n"
+                                   + _err(root, r))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(5)
+    return [torch.load(os.path.join(root, f"out{r}.pt"), weights_only=False)
+            for r in range(n)]
+
+
+def _err(root: str, rank: int) -> str:
+    path = os.path.join(root, f"err{rank}.txt")
+    return open(path).read() if os.path.exists(path) else "(no traceback written)"
+
+
+def _entry(fn, rank: int, n: int, root: str, args: tuple) -> None:
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh
+
+    torch.set_num_threads(1)
+    try:
+        mesh.init_process_group("cpu", init_method=f"file://{root}/store", rank=rank,
+                                world_size=n)
+        out = fn(rank, n, *args)
+        torch.save(out, os.path.join(root, f"out{rank}.pt"))
+        dist.barrier()
+    except BaseException:
+        with open(os.path.join(root, f"err{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# Shared inputs
+# ---------------------------------------------------------------------------
+
+def reduced(arch: str):
+    import repro_torch.configs as configs
+
+    return configs.get(arch).reduced()
+
+
+def port_params(arch: str) -> dict:
+    """Reduced latent params of the port, drawn from seed 0."""
+    from repro_torch.models import model_zoo
+
+    return model_zoo.init_params(reduced(arch), torch.Generator().manual_seed(0), "cpu")
+
+
+def flat(tree, path=()) -> dict:
+    """``{"a/b/c": numpy leaf}`` of a nested dict of tensors."""
+    if isinstance(tree, dict):
+        return {p: v for k, sub in tree.items() for p, v in flat(sub, path + (k,)).items()}
+    t = tree.full_tensor() if hasattr(tree, "full_tensor") else tree
+    return {"/".join(path): t.detach().cpu().numpy()}
+
+
+def unflat(leaves: dict) -> dict:
+    """The nested dict of tensors of :func:`flat`'s form."""
+    out: dict = {}
+    for key, arr in leaves.items():
+        node = out
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = torch.from_numpy(np.array(arr))
+    return out
+
+
+def lm_batch(cfg, b: int, s: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    return {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).long(),
+            "labels": torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).long()}
+
+
+def mesh22(n: int):
+    from repro_torch.launch import mesh as mesh_lib
+
+    dims = (2, 2) if n == 4 else (1, n)
+    return mesh_lib.device_mesh(mesh_lib.make_mesh(dims, ("data", "model")), "cpu")
+
+
+# ---------------------------------------------------------------------------
+# Rank functions
+# ---------------------------------------------------------------------------
+
+def placement_shards(rank: int, n: int, archs: tuple) -> dict:
+    """Each rank's local shard of every leaf, per (arch, fsdp); and the
+    leaves where ``sharding.local_shard`` of the full leaf differs from the
+    placed DTensor's local tensor (none expected)."""
+    from repro_torch.train import sharding
+
+    dm = mesh22(n)
+    out = {"local_shard_differs": []}
+    for arch in archs:
+        params = port_params(arch)
+        for fsdp in (False, True):
+            placed = sharding.place(params, dm, sharding.param_specs(params, dm, fsdp=fsdp))
+            out[arch, fsdp] = _local_flat(placed)
+            full = flat(params)
+            for key, leaf in _flat_tensors(placed).items():
+                view = sharding.local_shard(torch.from_numpy(full[key]), dm, leaf.placements)
+                if not torch.equal(view, leaf.to_local()):
+                    out["local_shard_differs"].append((arch, fsdp, key))
+    return out
+
+
+def _flat_tensors(tree, path=()) -> dict:
+    if isinstance(tree, dict):
+        return {p: v for k, sub in tree.items()
+                for p, v in _flat_tensors(sub, path + (k,)).items()}
+    return {"/".join(path): tree}
+
+
+def _local_flat(tree) -> dict:
+    return {k: v.to_local().numpy().copy() for k, v in _flat_tensors(tree).items()}
+
+
+def psum_rank(rank: int, n: int, grads: dict, errs: dict) -> tuple:
+    """``psum_compressed`` of this rank's grads and error buffers."""
+    from repro_torch.optim import compression
+
+    g = {k: torch.from_numpy(v[rank]) for k, v in grads.items()}
+    e = {k: torch.from_numpy(v[rank]) for k, v in errs.items()}
+    got_g, got_e = compression.psum_compressed(g, e)
+    return ({k: v.numpy() for k, v in got_g.items()}, {k: v.numpy() for k, v in got_e.items()})
+
+
+def compressed_dp_rank(rank: int, n: int, arch: str, params: dict, batches: list) -> dict:
+    """Two steps of ``make_compressed_dp_train_step`` over the world from
+    ``params``, and the exchanged mean gradient of the first step."""
+    from repro_torch.optim import OptConfig, adamw_init, compression
+    from repro_torch.train import TrainState, loss_and_grads, make_compressed_dp_train_step
+    from repro_torch.train.train_loop import _rows
+
+    cfg = reduced(arch)
+    p = unflat(params)
+    local = _rows(batches[0], rank, n)
+    _, _, grads = loss_and_grads(cfg, p, local)
+    mean, _ = compression.psum_compressed(grads, compression.init_error_buffer(p))
+    state = TrainState(p, adamw_init(p), torch.zeros((), dtype=torch.int32),
+                       compression.init_error_buffer(p))
+    step = make_compressed_dp_train_step(cfg, OptConfig(lr=1e-3, warmup_steps=1))
+    losses = []
+    for b in batches:
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+    return {"losses": losses, "mean_grads": flat(mean)}
+
+
+def jit_step_rank(rank: int, n: int, archs: tuple, cases: tuple, params: dict,
+                  batch: dict, ckpt_dir: str) -> dict:
+    """This rank's shards of the seeded params of ``archs``
+    (:func:`placement_shards`), and per (arch, fsdp) case: one
+    ``jit_train_step`` step on the (2, 2) mesh from the given params, its
+    loss, the averaged gradients, whether the state came back in its input
+    placements, and the one-process step's loss and gradients.  The bitnet
+    fsdp state after its step is saved to ``ckpt_dir``."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.train import TrainState, jit_train_step, loss_and_grads
+    from repro_torch.train.train_loop import sharded_loss_and_grads
+
+    dm = mesh22(n)
+    out = {"shards": placement_shards(rank, n, archs)}
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=1)
+    for arch, fsdp in cases:
+        cfg = reduced(arch)
+        p = unflat(params[arch])
+        state = TrainState(p, adamw_init(p), torch.zeros((), dtype=torch.int32))
+        step = jit_train_step(cfg, opt_cfg, dm, state, batch[arch], fsdp=fsdp)
+        placed = step.place(state)
+        before = _placements(placed)
+        loss_s, _, grads_s = sharded_loss_and_grads(cfg, dm, placed, batch[arch],
+                                                    step.batch_specs)
+        new, metrics = step(placed, batch[arch])
+        res = {"loss": float(metrics["loss"]), "sharded_grads_loss": float(loss_s),
+               "grads": flat(grads_s), "same_placements": _placements(new) == before}
+        if rank == 0:
+            loss1, _, grads1 = loss_and_grads(cfg, unflat(params[arch]), batch[arch])
+            res.update(loss_one=float(loss1), grads_one=flat(grads1))
+        out[arch, fsdp] = res
+        if arch == "bitnet-2b-4t" and fsdp:
+            ckpt.save(ckpt_dir, 1, new)
+            out["saved"] = flat(new.params)
+    out["liveness"] = gathered_liveness(dm)
+    return out
+
+
+def gathered_liveness(dm) -> dict:
+    """The most elements of whole params gathered and alive at once during
+    the fsdp gradients of a 4-layer reduced bitnet-2b-4t, with and without
+    ``remat``; beside the elements of one layer's params, of the params
+    outside the layer stack and of all of them, and whether every
+    gradient shard has its param shard's shape."""
+    import dataclasses
+    import weakref
+
+    from repro_torch.models import model_zoo
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.train import TrainState, fsdp, jit_train_step
+    from repro_torch.train.train_loop import sharded_loss_and_grads
+
+    cfg = dataclasses.replace(reduced("bitnet-2b-4t"), n_layers=4)
+    p = model_zoo.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    state = TrainState(p, adamw_init(p), torch.zeros((), dtype=torch.int32))
+    batch = lm_batch(cfg, 4, 8, 1)
+    step = jit_train_step(cfg, OptConfig(), dm, state, batch, fsdp=True)
+    placed = step.place(state)
+    alive: list = []
+    peak = [0]
+    real = fsdp.Split.all_gather
+
+    def counted(self, local, placements):
+        out = real(self, local, placements)
+        if out.untyped_storage().data_ptr() != local.untyped_storage().data_ptr():
+            alive.append((weakref.ref(out), out.numel()))
+            peak[0] = max(peak[0], sum(n for r, n in alive if r() is not None))
+        return out
+
+    res = {}
+    fsdp.Split.all_gather = counted
+    try:
+        for remat in (True, False):
+            alive.clear()
+            peak[0] = 0
+            _, _, grads = sharded_loss_and_grads(cfg, dm, placed, batch, step.batch_specs,
+                                                 remat=remat)
+            res[remat] = peak[0]
+    finally:
+        fsdp.Split.all_gather = real
+    sizes = {k: v.numel() for k, v in _flat_tensors(p).items()}
+    res["layer"] = sum(n for k, n in sizes.items() if k.startswith("blocks/")) // cfg.n_layers
+    res["top"] = sum(n for k, n in sizes.items() if not k.startswith("blocks/"))
+    res["all"] = sum(sizes.values())
+    res["shard_shapes"] = all(
+        g.to_local().shape == w.to_local().shape
+        for g, w in zip(_flat_tensors(grads).values(), _flat_tensors(placed.params).values()))
+    return res
+
+
+def _placements(state) -> list:
+    from repro_torch.checkpoint.checkpointing import _flatten
+
+    return [(k, tuple(v.placements)) for k, v in _flatten(state).items()]
+
+
+def restore_rank(rank: int, n: int, ckpt_dir: str) -> dict:
+    """The checkpoint restored onto this world's mesh, leaf by leaf."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import init_state, jit_train_step
+
+    cfg = reduced("bitnet-2b-4t")
+    dm = mesh22(n)
+    target = init_state(cfg, torch.Generator().manual_seed(1), OptConfig(), device="cpu")
+    batch = lm_batch(cfg, 4, 8, 0)
+    step = jit_train_step(cfg, OptConfig(), dm, target, batch, fsdp=True)
+    got = ckpt.restore(ckpt_dir, 1, target, shardings=step.shardings)
+    return {"params": flat(got.params), "placements": _placements(got)}
+
+
+def train_cli_rank(rank: int, n: int, argv: list) -> int:
+    """``launch/train.py`` on this rank of the world."""
+    from repro_torch.launch import train as train_main
+
+    return train_main.main(argv)
+
+
+def serving_rank(rank: int, n: int, arch: str, prompt_len: int, steps: int) -> dict:
+    """Prefill and ``steps`` greedy decode steps of the frozen reduced
+    ``arch`` through ``dryrun.mesh_cells`` on the (2, 2) mesh, beside the
+    unsharded ``prefill`` / ``decode_step`` on the same params; the (N, K,
+    M) of every call of ``tsar_matmul``'s wrapper on the mesh path (on the
+    CPU it takes the plain version, and ``LAUNCHES`` counts only kernel
+    launches) and the expert-parallel calls."""
+    from repro_torch.kernels import tsar_matmul
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model_zoo, moe
+    from repro_torch.serving.engine import freeze_params
+
+    cfg = reduced(arch)
+    params = freeze_params(port_params(arch), sparse=False)
+    b, max_len = 2, prompt_len + steps + 1
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (b, prompt_len))).long()
+
+    def greedy(prefill, decode, cache):
+        logits, cache = prefill({"tokens": toks}, cache)
+        out = [logits]
+        for t in range(prompt_len, prompt_len + steps):
+            logits, cache = decode(out[-1].argmax(-1), cache, t)
+            out.append(logits)
+        return out
+
+    plain = greedy(lambda bt, c: model_zoo.prefill(cfg, params, bt, c),
+                   lambda tk, c, t: model_zoo.decode_step(cfg, params, tk, c, t),
+                   model_zoo.init_cache(cfg, b, max_len, torch.float32, "cpu"))
+    cells = dryrun.mesh_cells(cfg, params, mesh22(n))
+    moe.EP_CALLS["expert_parallel"] = 0
+    calls: list = []
+    wrapper = tsar_matmul.tsar_matmul_packed
+
+    def recorded(a_q, a_scale, sign, zero, w_scale):
+        calls[-1].append((a_q.shape[0], a_q.shape[1], sign.shape[1]))
+        return wrapper(a_q, a_scale, sign, zero, w_scale)
+
+    def step(fn):
+        def run(*a):
+            calls.append([])
+            return fn(*a)
+        return run
+
+    tsar_matmul.tsar_matmul_packed = recorded
+    try:
+        mesh = greedy(step(cells.prefill), step(cells.decode_step), cells.place_cache(
+            model_zoo.init_cache(cfg, b, max_len, torch.float32, "cpu")))
+    finally:
+        tsar_matmul.tsar_matmul_packed = wrapper
+    return {"plain": [t.numpy() for t in plain], "mesh": [t.numpy() for t in mesh],
+            "calls": calls, "ep_calls": moe.EP_CALLS["expert_parallel"]}
+
+
+def train_mesh_rank(rank: int, n: int, argv: list) -> dict:
+    """``launch/train.py --mesh single`` on this world with the production
+    mesh swapped for a (1, n) one; counts the steps run through
+    ``jit_train_step``'s step."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as train_main
+
+    steps = [0]
+    real = train_main.jit_train_step
+
+    def counted(*a, **kw):
+        step = real(*a, **kw)
+
+        def run(state, batch):
+            steps[0] += 1
+            return step(state, batch)
+
+        run.shardings = step.shardings
+        return run
+
+    train_main.jit_train_step = counted
+    make = mesh_lib.make_production_mesh
+    mesh_lib.make_production_mesh = lambda multi_pod=False: mesh_lib.make_mesh(
+        (1, n), ("data", "model"))
+    try:
+        rc = train_main.main(argv)
+    finally:
+        train_main.jit_train_step, mesh_lib.make_production_mesh = real, make
+    return {"rc": rc, "jit_steps": steps[0]}

@@ -309,7 +309,7 @@ def test_analyze_equal_reference(chips, flops, args, outs):
         assert getattr(got, key) == pytest.approx(getattr(want, key), rel=1e-12), key
     assert got.compute_s == pytest.approx(got.flops_per_device / roofline.PEAK_FLOPS_BF16)
     assert got.memory_s == pytest.approx((args + outs) / roofline.HBM_BW)
-    assert got.collective_s == 0.0 and "multi-device slice" in got.note
+    assert got.collective_s == 0.0 and "collective term 0" in got.note
     assert ("ideal split" in got.note) == (chips > 1)
     rows = [got.to_json()]
     assert "| a " in roofline.format_table(rows)

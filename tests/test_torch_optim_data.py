@@ -6,8 +6,8 @@ L2 per leaf) with float32 and with bfloat16 moments; the schedule, the
 global norm and the clip within 1e-6; ``compress_leaf`` bit for bit,
 the single-process ``psum_compressed`` against the reference's over a
 one-device mesh (gradients bit for bit, error buffers within 2^-20: the
-compiled reference fuses one multiply-add); the synthetic stream value for
-value.
+compiled reference fuses one multiply-add) and its exchange over a
+one-rank process group; the synthetic stream value for value.
 """
 import jax
 import jax.numpy as jnp
@@ -145,10 +145,25 @@ def test_psum_compressed_single_process_bit_exact():
     np.testing.assert_array_equal(got_g["s"].numpy(), grads["s"])
 
 
-def test_psum_compressed_refuses_a_process_group(monkeypatch):
-    monkeypatch.setattr(compression, "world_size", lambda group=None: 4)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 10"):
-        compression.psum_compressed({"w": torch.zeros(2048)}, {"w": torch.zeros(2048)})
+def test_psum_compressed_refuses_a_process_group(tmp_path):
+    """A process group is taken, no longer refused: the exchange itself
+    (int8 all-to-all, scale all-gather, bf16 all-gather) over a one-rank
+    gloo group gives the single-process mean bit for bit, a ragged leaf
+    included.  Several ranks against the reference: ``test_torch_distributed``."""
+    import torch.distributed as dist
+
+    rng = np.random.default_rng(2)
+    g = torch.from_numpy(rng.standard_normal((3001,)).astype(np.float32))
+    e = torch.from_numpy((rng.standard_normal((3001,)) * 1e-3).astype(np.float32))
+    q, scale, _ = compression.compress_leaf(g, e)
+    want, _ = compression.psum_compressed({"w": g.clone()}, {"w": e.clone()})
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        got = compression._allreduce_int8(q, scale, None, 1)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(got.numpy(), want["w"].numpy())
 
 
 @pytest.mark.parametrize("n_hosts,host_id", [(1, 0), (2, 1)])

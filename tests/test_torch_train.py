@@ -61,6 +61,7 @@ from repro_torch.models import model_zoo
 from repro_torch.optim import OptConfig, adamw_init, compression
 from repro_torch.train import (TrainState, init_state, loss_and_grads,
                                make_compressed_dp_train_step, make_train_step)
+from repro_torch.utils.tree import leaves, tree_map
 
 # Tiny reduced-config ops: one torch thread per test worker (see the fixture).
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -208,9 +209,16 @@ def test_compressed_step_single_process_matches_reference_compression():
     batch = _port_batch(_batch(cfg, seed=4))
     batch["labels"][0, :3] = 5
     _, _, grads = loss_and_grads(cfg, params, batch)
-    want_g, want_e = compression.psum_compressed(grads, state.err_buf)
+    # psum_compressed writes into its arguments: the reference computation
+    # takes copies, so the step below starts from zero error buffers.
+    clone = lambda tree: tree_map(torch.clone, tree)  # noqa: E731
+    want_g, want_e = compression.psum_compressed(clone(grads), clone(state.err_buf))
+    assert all(not e.any() for e in _flat(state.err_buf).values())
     new, m = make_compressed_dp_train_step(cfg, opt)(state, batch)
     assert int(new.step) == 1 and np.isfinite(float(m["loss"]))
+    # The step's buffers (written in place) and the reference's are apart.
+    assert not any(a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
+                   for a, b in zip(leaves(new.err_buf), leaves(want_e)))
     for k, e in _flat(new.err_buf).items():
         assert np.array_equal(e, _flat(want_e)[k]), k
     big = [k for k, g in _flat(grads).items() if g.size >= compression.MIN_COMPRESSED]
@@ -228,8 +236,9 @@ def test_init_state_defaults_to_the_gpu():
 def test_launch_train_smoke_and_resume(tmp_path, capsys):
     """``launch/train.py --smoke --device cpu``: 4 steps with a checkpoint
     every 2, then a second run to 6 resumes from step 4; ``--compress-grads``
-    runs in one process; the mesh and FSDP flags raise naming the roadmap
-    item."""
+    runs in one process; ``--fsdp`` without a mesh is accepted and has no
+    effect, as in the reference; ``--mesh single`` on a world of one raises,
+    naming both sizes (across processes: ``test_torch_distributed``)."""
     args = ["--arch", "bitnet-2b-4t", "--smoke", "--device", "cpu", "--seq-len", "16",
             "--global-batch", "2", "--ckpt-every", "2", "--ckpt-dir", str(tmp_path)]
     assert train_main.main(args + ["--steps", "4"]) == 0
@@ -245,6 +254,8 @@ def test_launch_train_smoke_and_resume(tmp_path, capsys):
                               "--compress-grads"]
     assert train_main.main(compressed) == 0
     assert "completed=True restarts=0 last_step=2" in capsys.readouterr().out
-    for flag in (["--mesh", "single"], ["--fsdp"]):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 10"):
-            train_main.main(args + ["--steps", "1"] + flag)
+    fsdp = args[:-1] + [str(tmp_path / "fsdp"), "--steps", "1", "--fsdp"]
+    assert train_main.main(fsdp) == 0
+    assert "completed=True restarts=0 last_step=1" in capsys.readouterr().out
+    with pytest.raises(ValueError, match=r"256-process .* 1 processes"):
+        train_main.main(args + ["--steps", "1", "--mesh", "single"])
