@@ -188,10 +188,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
    delta, the step's peak within 25 % of the predicted temp bytes.  After
    phase 18 the dry-run's prediction for its training cell (1024 x 2,
    latent, remat) is printed beside the measured peak (not gated).
-19b. the dry-run sweep: every non-skipped cell of ``configs.cells()``,
-   packed, on the single-pod 16 x 16 mesh, full width on meta in one
-   process per CPU core: every cell ``ok``; ``report.dryrun_table`` /
-   ``roofline_table`` and the sweep's wall time printed.
+19b. the dry-run sweep per device: every non-skipped cell of
+   ``configs.cells()``, packed, on the single-pod 16 x 16 mesh, and
+   ``bitnet-2b-4t``'s train, prefill and decode cells on 16 x 16 and on the
+   multi-pod 2 x 16 x 16 mesh, full width on meta, each cell traced as rank
+   0 of a fake world of 256 (512) ranks, one process per CPU core: every
+   cell ``ok``, every (fsdp) train cell with all-gather and reduce-scatter
+   bytes; per cell the collective bytes of each kind, the three terms and
+   the bound, both meshes' ``report`` tables and the sweep's wall time
+   printed.
 19c. the three examples (``examples/torch_*.py``) through ``main()`` on the
    card: quickstart's loss falls and its serving launches ``tsar_matmul``;
    every request of serve_ternary finishes, with launches and a max step
@@ -280,6 +285,8 @@ POLICIES = ("flat", "chunked", "whole")
 # The training phase: optimizer steps, tokens per sequence, sequences per
 # step, microbatches per step.
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = 3, 1024, 2, 2
+# Phase 19b's bitnet-2b-4t cells, swept on both production meshes.
+SWEEP_BITNET_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 # Phase 19a's cells: full-width bitnet decode and prefill that fit one card.
 DRYRUN_CARD_CELLS = (("decode_card", 4096, 32, "decode"), ("prefill_card", 2048, 4, "prefill"))
 # The mesh phase's serving cells: slots, prompt tokens, generated tokens.
@@ -2556,14 +2563,18 @@ def dryrun_train_prediction(torch, cfg, measured_gib: float) -> None:
 
 
 def sweep_phase(torch) -> list:
-    """19b: every non-skipped cell, packed, on the single-pod mesh, at full
-    width on meta, one process per CPU core."""
+    """19b: every non-skipped cell, packed, per device on the single-pod
+    16 x 16 mesh, and bitnet-2b-4t's cells on 16 x 16 and the multi-pod
+    2 x 16 x 16 mesh: each traced at full width on meta as rank 0 of a fake
+    world of 256 (512) ranks, one spawned process per CPU core."""
     import repro_torch.configs as configs
     from repro_torch.launch import dryrun, report
 
     jobs = [(c.name, s.name, "single", "packed", {}) for c, s, _ in configs.cells()]
+    jobs += [("bitnet-2b-4t", s, m, "packed", {}) for m in ("single", "multi")
+             for s in SWEEP_BITNET_SHAPES]
     # Longest first (train cells, then prefill, then decode), so that no
-    # long cell starts last; the records are put back in the cells' order.
+    # long cell starts last; the records are put back in the jobs' order.
     rank = {"train": 0, "prefill": 1, "decode": 2}
     order = sorted(range(len(jobs)), key=lambda i: rank[configs.SHAPES[jobs[i][1]].kind])
     workers = min(len(jobs), os.cpu_count() or 1)
@@ -2571,13 +2582,31 @@ def sweep_phase(torch) -> list:
     done = dict(zip(order, dryrun.sweep([jobs[i] for i in order], workers)))
     wall = time.perf_counter() - t0
     recs = [done[i] for i in range(len(jobs))]
-    bad = [(r["arch"], r["shape"], r.get("error")) for r in recs if r["status"] != "ok"]
+    bad = [(r["arch"], r["shape"], r["mesh"], r.get("error")) for r in recs
+           if r["status"] != "ok"]
     _require(not bad, f"dry-run sweep: cells not ok: {bad}")
-    print(f"dry-run sweep: {len(recs)}/{len(jobs)} cells ok on the single-pod mesh "
-          f"(16 x 16, packed) in {wall:.1f} s wall, {workers} processes, "
-          f"{sum(r['wall_s'] for r in recs):.1f} s of cells", flush=True)
-    print(report.dryrun_table(recs, "single"))
-    print(report.roofline_table(recs, "single"), flush=True)
+    for r in recs:
+        f = r["roofline"]
+        coll = {k: f"{v:.4g}" for k, v in sorted(f["collectives"].items())}
+        print(f"dry-run {r['arch']} {r['shape']} {r['mesh']} ({r['chips']} devices, "
+              f"{r['mode']}): per device flops {f['flops_per_device']:.4g}, temp "
+              f"{r['memory_analysis']['temp_size_in_bytes']:.4g} B, collective bytes "
+              f"{coll}; compute {f['compute_s']:.4g} s, memory {f['memory_s']:.4g} s, "
+              f"collective {f['collective_s']:.4g} s -> {f['bound']} ({r['wall_s']} s)",
+              flush=True)
+        if r["mode"] == "train_step":
+            _require(f["collectives"].get("all-gather", 0) > 0
+                     and f["collectives"].get("reduce-scatter", 0) > 0,
+                     f"dry-run {r['arch']} {r['shape']} {r['mesh']}: fsdp train cell without "
+                     f"all-gather and reduce-scatter bytes: {f['collectives']}")
+    n_bitnet = 2 * len(SWEEP_BITNET_SHAPES)
+    print(f"dry-run sweep: {len(recs)}/{len(jobs)} cells ok per device ({len(jobs) - n_bitnet} "
+          f"on 16 x 16, bitnet-2b-4t on 16 x 16 and 2 x 16 x 16, packed) in {wall:.1f} s "
+          f"wall, {workers} processes, {sum(r['wall_s'] for r in recs):.1f} s of cells, torch "
+          f"{torch.__version__}", flush=True)
+    for mesh in ("single", "multi"):
+        print(report.dryrun_table(recs, mesh))
+        print(report.roofline_table(recs, mesh), flush=True)
     return recs
 
 

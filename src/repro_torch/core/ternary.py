@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 # Number of weights packed per byte in a bitplane.
@@ -30,6 +31,19 @@ class TernaryWeights(NamedTuple):
     zero_plane: torch.Tensor   # uint8 (ceil(K/8), M)  bit=1 where w == 0
     scale: torch.Tensor        # f32   (M,) per-output-channel dequant scale
     shape: tuple               # logical (K, M)
+
+    @property
+    def k(self) -> int:
+        return self.shape[0]
+
+    @property
+    def m(self) -> int:
+        return self.shape[1]
+
+    def nbytes(self) -> int:
+        """Device-memory bytes of the packed planes and the scale (the
+        paper's 2-bit/weight claim)."""
+        return int(self.sign_plane.numel() + self.zero_plane.numel() + self.scale.numel() * 4)
 
 
 def absmean_ternarize(w: torch.Tensor, eps: float = 1e-6
@@ -46,6 +60,20 @@ def absmean_ternarize(w: torch.Tensor, eps: float = 1e-6
     num = torch.sum(w * t, dim=-2)
     den = torch.sum(t * t, dim=-2) + eps
     return t, num / den
+
+
+def decompose(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Ternary -> (dense, sparse) binary decomposition (paper Sec. III-A):
+    ``(w_d, w_s)`` with ``w_d in {-1,+1}`` and ``w_s in {0,1}`` such that
+    ``t == w_d - w_s`` elementwise."""
+    w_s = (t == 0).to(t.dtype)
+    w_d = torch.where(t == 0, torch.ones_like(t), t)
+    return w_d, w_s
+
+
+def recompose(w_d: torch.Tensor, w_s: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`decompose`."""
+    return w_d - w_s
 
 
 def _pack_bits(bits: torch.Tensor, pad_value: int = 0) -> torch.Tensor:
@@ -180,3 +208,28 @@ def quantize_activations(a: torch.Tensor, eps: float = 1e-6,
 def ternary_density(t: torch.Tensor) -> torch.Tensor:
     """Fraction of non-zero weights (over the last two dims)."""
     return torch.mean((t != 0).to(torch.float32), dim=(-2, -1))
+
+
+def packed_bytes_per_weight() -> float:
+    """Storage cost of the T-SAR packing: 2 bits/weight."""
+    return 2.0 / 8.0
+
+
+def tl2_bytes_per_weight() -> float:
+    """TL-2 baseline packing density from the paper's footnote: 1.67
+    bits/weight."""
+    return 1.67 / 8.0
+
+
+def np_pack_reference(t: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """NumPy oracle for the bitplane packing of a (K, M) ternary matrix, K a
+    multiple of 8: (sign plane, zero plane), uint8 (K/8, M)."""
+    k, m = t.shape
+    sign = (t < 0).astype(np.uint8)
+    zero = (t == 0).astype(np.uint8)
+
+    def p(bits):
+        return np.packbits(bits.reshape(k // PACK, PACK, m), axis=1,
+                           bitorder="little").reshape(k // PACK, m)
+
+    return p(sign), p(zero)

@@ -2,28 +2,33 @@
 with shapes only (port of ``repro/launch/dryrun.py``).
 
 The reference lowers and compiles each cell with XLA on 512 placeholder host
-devices.  Here the cell's step runs once on the ``meta`` device, at full
-width: every tensor carries its shape and dtype and no data, so nothing is
-allocated, no GPU is needed and no environment flag is set.  Per cell this
-module
+devices and reads one device's share from the partitioned program.  Here the
+cell's step runs once on the ``meta`` device, at full width: every tensor
+carries its shape and dtype and no data, so nothing is allocated, no GPU is
+needed and no environment flag is set.  On a 1 x 1 mesh the step is the
+plain one.  On a larger mesh this process is rank 0 of a fake
+``torch.distributed`` world of ``mesh.size`` ranks
+(``launch.mesh.fake_world``), and the step is the one that runs across real
+ranks: the serve cells of :func:`mesh_cells` on DTensors, the train cell
+``train.jit_train_step`` (params gathered at use, gradients
+reduce-scattered), each on rank 0's shards.  Per cell this module
 
-  1. builds the cell's step (``make_train_step`` for train cells,
-     ``model_zoo.prefill`` for prefill, ``model_zoo.decode_step`` for
-     decode) and its meta inputs, with the sharding rules of
-     ``repro_torch.train.sharding`` giving each argument's per-device shard,
+  1. builds the cell's step and its meta inputs, with the sharding rules of
+     ``repro_torch.train.sharding`` giving each argument's per-device shard
+     (:func:`lower_cell`),
   2. runs the step once under a dispatch mode (:class:`MetaTrace`) that
-     counts its FLOPs with ``torch.utils.flop_counter``'s formulas and
-     follows the live meta bytes, while the kernel wrappers' meta branches
-     record their calls in ``kernels.tally``,
+     counts the FLOPs of the local ops with ``torch.utils.flop_counter``'s
+     formulas, follows the live meta bytes and adds up the bytes of each
+     collective, while the kernel wrappers' meta branches record their
+     calls in ``kernels.tally`` (:func:`measure`),
   3. derives the three roofline terms (``repro_torch.launch.roofline``),
   4. appends the record, in the reference's schema, to the output JSON
      (incremental, resumable).
 
-``memory_analysis`` holds per-device bytes: arguments and outputs by their
-sharding specs; ``temp_size_in_bytes`` is the step's peak of live bytes
-beyond its arguments (outputs included, as the card's allocator counts
-them), divided by the chips under a mesh larger than 1 x 1 (an ideal split:
-the trace is the unsharded step).
+Every count is per device.  ``memory_analysis`` holds arguments and outputs
+by their sharding specs; ``temp_size_in_bytes`` is the step's peak of live
+bytes beyond its arguments (outputs included, as the card's allocator
+counts them).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma3-4b --shape train_4k --mesh single
@@ -33,6 +38,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -49,12 +55,13 @@ from torch.utils.flop_counter import flop_registry
 import repro_torch.configs as configs
 from repro_torch.kernels import tally
 from repro_torch.launch import roofline as rl
-from repro_torch.launch.mesh import Mesh, make_production_mesh
+from repro_torch.launch.mesh import Mesh, fake_world, make_production_mesh
 from repro_torch.models import model_zoo as zoo
 from repro_torch.optim import OptConfig
 from repro_torch.optim.optimizer import AdamWState
 from repro_torch.serving.engine import freeze_params
-from repro_torch.train import TrainState, init_state, make_train_step, sharding
+from repro_torch.train import TrainState, init_state, jit_train_step, make_train_step
+from repro_torch.train import sharding
 
 BIG_PARAMS = 60e9  # above this, bf16 adam moments (fits 400B on one pod)
 
@@ -93,37 +100,98 @@ def tree_bytes(mesh: Mesh, tree, specs=None) -> int:
                else t.numel() * t.element_size() for t, s in _pairs(tree, specs))
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard; a plain tensor as it is."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 def _storage_keys(tree) -> set:
-    return {t.untyped_storage()._cdata for t, _ in _pairs(tree, None)}
+    return {_local(t).untyped_storage()._cdata for t, _ in _pairs(tree, None)}
+
+
+# The collectives the port's steps issue, by (namespace, op name): the
+# functional collectives of DTensor (and its all-to-all) return their
+# result; the c10d ops of raw ``dist.*`` calls write into their first
+# argument.  The kinds are the reference's names
+# (``roofline.collective_bytes_from_hlo``), the bytes its convention: the
+# result per device (an all-reduce's tensor, an all-gather's gathered
+# tensor, a reduce-scatter's shard, an all-to-all's output).
+_COLLECTIVES = {
+    ("_c10d_functional", "all_reduce"): "all-reduce",
+    ("_c10d_functional", "all_gather_into_tensor"): "all-gather",
+    ("_c10d_functional", "reduce_scatter_tensor"): "reduce-scatter",
+    ("_c10d_functional", "all_to_all_single"): "all-to-all",
+    ("_dtensor", "shard_dim_alltoall"): "all-to-all",
+    ("c10d", "allreduce_"): "all-reduce",
+    ("c10d", "_allgather_base_"): "all-gather",
+    ("c10d", "_reduce_scatter_base_"): "reduce-scatter",
+    ("c10d", "alltoall_base_"): "all-to-all",
+}
+# Ops of those namespaces that move no data of their own: the second half of
+# an async pair (counted once, at its start), the autograd wrapper, a
+# process-group lookup.  Any other op there raises: its bytes would be missed.
+_NOT_COLLECTIVES = {"wait_tensor", "_wrap_tensor_autograd", "mesh_get_process_group"}
+_COMM_NAMESPACES = {"c10d", "_c10d_functional", "_c10d_functional_autograd", "_dtensor"}
 
 
 class MetaTrace(TorchDispatchMode):
     """One pass over a meta step: its FLOPs, by the formulas of
     ``torch.utils.flop_counter`` (``flop_registry``, the table
-    ``FlopCounterMode`` counts with), and the bytes of the meta storages
+    ``FlopCounterMode`` counts with), the bytes of the meta storages
     created under it and still alive (each storage counted once, at its
-    first appearance: views and in-place results share it); ``peak`` is
-    their maximum.  Storages in ``exclude`` (the step's arguments) are not
-    counted.  One mode does both because each Python dispatch mode costs
-    every op of the trace a Python call, and ``FlopCounterMode`` also tries
-    to decompose every op its table does not list; the counts equal
-    ``FlopCounterMode``'s (``tests/test_torch_launch.py``)."""
+    first appearance: views and in-place results share it), and the bytes
+    of each kind of collective (``collectives``).  ``peak`` is the maximum
+    of the live bytes.  Storages in ``exclude`` (the step's arguments) are
+    not counted.  One mode does all of it because each Python dispatch mode
+    costs every op of the trace a Python call, and ``FlopCounterMode`` also
+    tries to decompose every op its table does not list; the counts equal
+    ``FlopCounterMode``'s (``tests/test_torch_launch.py``).
+
+    Only the local ops of this rank count.  An op on DTensors is passed on
+    to DTensor (``NotImplemented``), which runs the local ops and the
+    collectives under it through this mode again.  DTensor's sharding
+    propagation runs ops on fake tensors of the global shapes, under a
+    fake tensor mode, on a cache miss only: those are not this rank's work
+    and are not counted, so the counts do not depend on what ran before.
+    A collective ``_COLLECTIVES`` does not know raises."""
 
     def __init__(self, exclude: set):
         super().__init__()
+        from torch.distributed.tensor import DTensor
+
+        self._dtensor = DTensor
         self.exclude = exclude
         self.flops = 0
         self.live = 0
         self.peak = 0
+        self.collectives: dict[str, int] = {}
         self._seen: set = set()
 
     def _free(self, key: int, nbytes: int) -> None:
         self.live -= nbytes
         self._seen.discard(key)
 
+    def _collective(self, func, args, out) -> None:
+        name = func._schema.name.split("::")[1]
+        if name in _NOT_COLLECTIVES:
+            return
+        kind = _COLLECTIVES.get((func.namespace, name))
+        if kind is None:
+            raise RuntimeError(f"the dry-run does not know the collective {func}")
+        result = args[0] if func.namespace == "c10d" else out
+        nbytes = sum(t.numel() * t.element_size() for t in pytree.tree_leaves(result)
+                     if isinstance(t, torch.Tensor))
+        self.collectives[kind] = self.collectives.get(kind, 0) + nbytes
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, self._dtensor) for t in types):
+            return NotImplemented
         out = func(*args, **kwargs)
+        if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None:
+            return out          # DTensor's sharding propagation (see the docstring)
+        if func.namespace in _COMM_NAMESPACES:
+            self._collective(func, args, out)
         formula = flop_registry.get(func._overloadpacket)
         if formula is not None:
             self.flops += formula(*args, **kwargs, out_val=out)
@@ -162,19 +230,31 @@ def serve_fsdp(cfg, mesh, weights: str = "packed") -> bool:
 
 
 def lower_cell(cfg, shape, mesh: Mesh, *, weights: str = "packed", fsdp: bool = True,
-               remat: bool = True, cache_dtype=torch.bfloat16) -> tuple[Lowered, dict]:
-    """Build the cell's step and its meta arguments.  Returns (lowered, meta)."""
+               remat: bool = True, cache_dtype=torch.bfloat16,
+               device_mesh=None) -> tuple[Lowered, dict]:
+    """Build the cell's step and its meta arguments.  Returns (lowered, meta).
+
+    With a ``device_mesh`` (a ``DeviceMesh`` of ``mesh``'s axes) the step
+    is the one that runs on it and its arguments are placed there: the
+    train state by ``jit_train_step``, the params and cache by
+    :func:`mesh_cells`; the batch stays global, as every rank passes it."""
     kind = shape.kind
     if kind == "train":
         opt_cfg = OptConfig(
             moment_dtype="bfloat16" if cfg.n_params() > BIG_PARAMS else "float32")
         state = init_state(cfg, None, opt_cfg, device="meta")
+        batch = zoo.input_specs(cfg, shape)
+        if device_mesh is not None:
+            step = jit_train_step(cfg, opt_cfg, device_mesh, state, batch, fsdp=fsdp,
+                                  remat=remat)
+            specs = step.state_specs
+            return (Lowered(step, (step.place(state), batch), (specs, step.batch_specs),
+                            (specs, None)), {"mode": "train_step"})
         pspecs = sharding.param_specs(state.params, mesh, fsdp=fsdp)
         mspecs = sharding.param_specs(state.opt.mu, mesh, fsdp=fsdp)
         state_specs = TrainState(params=pspecs,
                                  opt=AdamWState(mu=mspecs, nu=mspecs, count=()),
                                  step=(), err_buf=None)
-        batch = zoo.input_specs(cfg, shape)
         bspecs = sharding.batch_specs(mesh, batch)
         step = make_train_step(cfg, opt_cfg, remat=remat)
         return (Lowered(step, (state, batch), (state_specs, bspecs), (state_specs, None)),
@@ -189,26 +269,32 @@ def lower_cell(cfg, shape, mesh: Mesh, *, weights: str = "packed", fsdp: bool = 
         params = freeze_params(params)
     elif weights == "dense":
         params = _dense_bf16(params)
-    pspecs = sharding.param_specs(params, mesh, fsdp=serve_fsdp(cfg, mesh, weights))
+    p_fsdp = serve_fsdp(cfg, mesh, weights)
+    pspecs = sharding.param_specs(params, mesh, fsdp=p_fsdp)
 
     inputs = zoo.input_specs(cfg, shape, cache_dtype=cache_dtype)
     cache = inputs.pop("cache")
     cspecs = sharding.cache_specs(mesh, cache, cfg.n_kv_heads)
+    # decode / serve_step: the step's length is the cache's last row, so
+    # attention reads the whole cache as the reference's traced step does.
+    t_last = shape.seq_len - 1
+    if device_mesh is None:
+        prefill = lambda p, b, c: zoo.prefill(cfg, p, b, c, train=False)  # noqa: E731
+        decode = lambda p, tk, c, t: zoo.decode_step(cfg, p, tk, c, t_last,  # noqa: E731
+                                                     train=False)
+    else:
+        cells = mesh_cells(cfg, params, device_mesh, fsdp=p_fsdp)
+        params, cache = cells.params, cells.place_cache(cache)
+        prefill = lambda p, b, c: cells.prefill(b, c)  # noqa: E731
+        decode = lambda p, tk, c, t: cells.decode_step(tk, c, t_last)  # noqa: E731
 
     if kind == "prefill":
         bspecs = sharding.batch_specs(mesh, inputs)
-        return (Lowered(lambda p, b, c: zoo.prefill(cfg, p, b, c, train=False),
-                        (params, inputs, cache), (pspecs, bspecs, cspecs), (None, cspecs)),
-                {"mode": "prefill"})
-
-    # decode / serve_step: the step's length is the cache's last row, so
-    # attention reads the whole cache as the reference's traced step does.
+        return (Lowered(prefill, (params, inputs, cache), (pspecs, bspecs, cspecs),
+                        (None, cspecs)), {"mode": "prefill"})
     tspec = sharding.batch_specs(mesh, {"tokens": inputs["tokens"]})["tokens"]
-    t_last = shape.seq_len - 1
-    return (Lowered(lambda p, tk, c, t: zoo.decode_step(cfg, p, tk, c, t_last, train=False),
-                    (params, inputs["tokens"], cache, inputs["t"]),
-                    (pspecs, tspec, cspecs, ()), (None, cspecs)),
-            {"mode": "serve_step"})
+    return (Lowered(decode, (params, inputs["tokens"], cache, inputs["t"]),
+                    (pspecs, tspec, cspecs, ()), (None, cspecs)), {"mode": "serve_step"})
 
 
 class MeshCells(NamedTuple):
@@ -217,6 +303,7 @@ class MeshCells(NamedTuple):
     place_cache: Callable
     prefill: Callable
     decode_step: Callable
+    params: dict
 
 
 def mesh_cells(cfg, params: dict, device_mesh, *, fsdp: bool | None = None) -> MeshCells:
@@ -235,7 +322,8 @@ def mesh_cells(cfg, params: dict, device_mesh, *, fsdp: bool | None = None) -> M
     the tensors the step creates are replicated on the mesh
     (``implicit_replication``).  ``prefill(batch, cache)`` and
     ``decode_step(tokens, cache, t)`` return (the full logits as a plain
-    tensor on every rank, the cache placed as it came).
+    tensor on every rank, the cache placed as it came); ``params`` is the
+    placed tree.
     """
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -273,7 +361,7 @@ def mesh_cells(cfg, params: dict, device_mesh, *, fsdp: bool | None = None) -> M
         return run(lambda c, p, x, ca: zoo.decode_step(c, p, x, ca, t, train=False),
                    cache, tk)
 
-    return MeshCells(place_cache, prefill, decode_step)
+    return MeshCells(place_cache, prefill, decode_step, placed)
 
 
 def _packed(params) -> bool:
@@ -283,37 +371,48 @@ def _packed(params) -> bool:
 
 
 def measure(lowered: Lowered, mesh: Mesh) -> dict:
-    """Run the step once on meta: FLOPs, kernel tally, live bytes.
-    Returns the counts and the per-device ``memory_analysis``."""
-    chips = mesh.size
+    """Run the step once on meta: FLOPs, kernel tally, live bytes,
+    collectives, all per device.  Returns the counts, the per-device
+    ``memory_analysis``, the kernel calls and the collective bytes by
+    kind."""
     trace = MetaTrace(_storage_keys(lowered.args))
     del tally.TALLY[:]
-    with trace:
-        out = lowered.run()
-    kernels, kernel_ops, n_calls = tally.counts(), tally.ops(), len(tally.TALLY)
-    del tally.TALLY[:]
+    try:
+        with trace:
+            out = lowered.run()
+        kernels, kernel_ops, n_calls = tally.counts(), tally.ops(), len(tally.TALLY)
+    finally:
+        del tally.TALLY[:]
     counts = {"flops": float(trace.flops), "kernel_ops": float(kernel_ops),
               "kernel_calls": float(n_calls)}
     mem = {"argument_size_in_bytes": float(tree_bytes(mesh, lowered.args, lowered.arg_specs)),
            "output_size_in_bytes": float(tree_bytes(mesh, out, lowered.out_specs)),
-           "temp_size_in_bytes": float(trace.peak // chips)}
-    return {"counts": counts, "memory_analysis": mem, "kernels": kernels}
+           "temp_size_in_bytes": float(trace.peak)}
+    return {"counts": counts, "memory_analysis": mem, "kernels": kernels,
+            "collectives": {k: float(v) for k, v in trace.collectives.items()}}
 
 
 def run_cell(cfg, shape, mesh: Mesh, mesh_name: str, weights: str = "packed",
              verbose: bool = True, **kw) -> dict:
+    """One cell's record.  A mesh of more than one device is traced as
+    rank 0 of a fake world of ``mesh.size`` ranks (``mesh.fake_world``,
+    destroyed before this returns; a process group already initialized
+    here is an error, never replaced).  Any failure is the record's
+    ``status: "error"`` with its reason."""
     chips = mesh.size
     rec: dict[str, Any] = {"arch": cfg.name, "shape": shape.name, "mesh": mesh_name,
                            "chips": int(chips), "weights": weights, "status": "ok"}
     t0 = time.time()
     try:
-        lowered, meta = lower_cell(cfg, shape, mesh, weights=weights, **kw)
-        rec.update(meta)
-        m = measure(lowered, mesh)
-        del lowered
+        with fake_world(mesh) if chips > 1 else contextlib.nullcontext() as device_mesh:
+            lowered, meta = lower_cell(cfg, shape, mesh, weights=weights,
+                                       device_mesh=device_mesh, **kw)
+            rec.update(meta)
+            m = measure(lowered, mesh)
+            del lowered
         mf = rl.model_flops_for_cell(cfg, shape)
         roof = rl.analyze(cfg.name, shape.name, mesh_name, int(chips), m["counts"], mf,
-                          memory_stats=m["memory_analysis"])
+                          memory_stats=m["memory_analysis"], collectives=m["collectives"])
         rec["roofline"] = roof.to_json()
         rec["cost"] = m["counts"]
         rec["kernels"] = m["kernels"]

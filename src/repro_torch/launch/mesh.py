@@ -11,9 +11,13 @@ To run on one, :func:`init_process_group` joins the processes that
 ``torchrun`` started (NCCL for CUDA, one rank per card; gloo for the CPU)
 and :func:`device_mesh` lays a :class:`Mesh` over them as a
 ``torch.distributed`` ``DeviceMesh`` with the same axis names and sizes.
+:func:`fake_world` makes this process rank 0 of a world of ``mesh.size``
+ranks that exist only in name, so that the dry-run can trace one device's
+share of a step on the meta device.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import math
 import os
@@ -115,3 +119,32 @@ def device_mesh(mesh: Mesh, device: str | torch.device = "cuda"):
                          f"the world has {world}")
     return init_device_mesh(torch.device(device).type, mesh.dims,
                             mesh_dim_names=mesh.axis_names)
+
+
+@contextlib.contextmanager
+def fake_world(mesh: Mesh, device_type: str = "cuda"):
+    """This process as rank 0 of a world of ``mesh.size`` ranks, and the
+    ``DeviceMesh`` of ``mesh`` over it, for the extent of the ``with``.
+
+    The world is ``torch.distributed``'s ``fake`` backend (with its
+    ``FakeStore``, from ``torch.testing``): every rank but this one exists
+    only in name, and a collective returns at once with its output as it
+    came (its shape is right, its values are not).  Meant for meta tensors,
+    which hold no values: the dry-run traces rank 0's share of a step
+    through the same code that runs across real ranks.  ``device_type`` is
+    the mesh's: DTensor picks some collectives by it (a ``cpu`` mesh, gloo's,
+    has no all-to-all and all-gathers instead); no device of that type is
+    needed.  Raises if a process group is already initialized (it would be
+    replaced); the fake group is destroyed on the way out.
+    """
+    if dist.is_initialized():
+        raise RuntimeError(f"a {dist.get_backend()} process group of "
+                           f"{dist.get_world_size()} ranks is initialized; a fake world "
+                           "would replace it")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=mesh.size)
+    try:
+        yield device_mesh(mesh, device_type)
+    finally:
+        dist.destroy_process_group()

@@ -2,23 +2,26 @@
 ``repro/launch/roofline.py``).
 
 Three terms per (arch x shape x mesh), in seconds, analytic, on the H100 SXM
-data sheet's constants (``repro_torch.core.hw``):
+data sheet's constants (``repro_torch.core.hw``), all per device:
 
     compute    = FLOPs / PEAK_FLOPS_BF16
-    memory     = (argument + output bytes per device) / HBM_BW
-    collective = 0 (the meta trace counts no collective bytes yet)
+    memory     = (argument + output bytes) / HBM_BW
+    collective = collective bytes / NVLINK_BW
 
-FLOPs are those ``torch.utils.flop_counter``'s formulas count over the cell's
-step on the meta device (``dryrun.MetaTrace``, equal to ``FlopCounterMode``'s
-count), plus the operations of the hand-written
-kernels, which the meta branch of each wrapper records in
-``kernels.tally`` (2*n*k*m per call): the flop counter cannot see inside
-them.  The meta trace is the whole, unsharded step, so under a mesh of more
-than one device the FLOPs per device are the global count / chips, an ideal
-split (``note`` says so).  The memory term is the reference's own sound floor:
-every argument byte (weights, caches, batch) crosses HBM at least once per
-step, and so does every output byte; PyTorch has no compiler estimate of
-bytes accessed to take the larger of.
+The dry-run (``launch/dryrun.py``) traces one device's share of the step on
+the meta device, as rank 0 of the mesh's world where the mesh has more than
+one device.  FLOPs are those ``torch.utils.flop_counter``'s formulas count
+over its local ops (``dryrun.MetaTrace``, equal to ``FlopCounterMode``'s
+count), plus the operations of the hand-written kernels, which the meta
+branch of each wrapper records in ``kernels.tally`` (2*n*k*m per call): the
+flop counter cannot see inside them.  The memory term is the reference's own
+sound floor: every argument byte (weights, caches, batch) crosses HBM at
+least once per step, and so does every output byte; PyTorch has no compiler
+estimate of bytes accessed to take the larger of.  The collective bytes
+follow the reference's convention (``collective_bytes_from_hlo``): each
+collective's result per device, by kind, an async pair once; the link rate
+is NVLink 4's 450 GB/s per direction in place of the TPU's ICI link, one
+link per device as the reference counts it.
 
 The reference's HLO text parsers (``hlo_program_costs``,
 ``collective_bytes_from_hlo``) are not ported: PyTorch has no HLO.
@@ -27,10 +30,7 @@ from __future__ import annotations
 
 from dataclasses import asdict, dataclass
 
-from repro_torch.core.hw import HBM_BW, NVLINK_BW, PEAK_FLOPS_BF16  # noqa: F401
-
-IDEAL_SPLIT_NOTE = "flops/device = global meta-trace count / chips (ideal split)"
-NO_COLLECTIVES_NOTE = "collective term 0: the meta trace counts no collective bytes yet"
+from repro_torch.core.hw import HBM_BW, NVLINK_BW, PEAK_FLOPS_BF16
 
 
 @dataclass
@@ -58,18 +58,18 @@ class Roofline:
 
 def analyze(arch: str, shape_name: str, mesh_name: str, chips: int,
             counts: dict, model_flops: float, memory_stats: dict | None = None,
-            note: str = "") -> Roofline:
-    """The three roofline terms of one cell.
+            collectives: dict | None = None, note: str = "") -> Roofline:
+    """The three roofline terms of one cell, from per-device counts.
 
-    ``counts``: ``"flops"``, the flop counter's global count over the meta
-    trace, and ``"kernel_ops"``, the kernel tally's operations.
-    ``memory_stats``: per-device ``argument_size_in_bytes``,
-    ``output_size_in_bytes`` and ``temp_size_in_bytes`` (``run_cell``'s
-    ``memory_analysis``).
+    ``counts``: ``"flops"``, the flop counter's count over the meta trace,
+    and ``"kernel_ops"``, the kernel tally's operations.
+    ``memory_stats``: ``argument_size_in_bytes``, ``output_size_in_bytes``
+    and ``temp_size_in_bytes`` (``run_cell``'s ``memory_analysis``).
+    ``collectives``: bytes by kind (``all-reduce``, ``all-gather``, ...).
     """
-    flops = float(counts.get("flops", 0.0) + counts.get("kernel_ops", 0.0)) / chips
-    notes = [n for n in (note, NO_COLLECTIVES_NOTE,
-                         IDEAL_SPLIT_NOTE if chips > 1 else "") if n]
+    flops = float(counts.get("flops", 0.0) + counts.get("kernel_ops", 0.0))
+    coll = {k: float(v) for k, v in (collectives or {}).items()}
+    coll_bytes = float(sum(coll.values()))
     arg_out = 0.0
     peak_mem = None
     if memory_stats is not None:
@@ -79,18 +79,18 @@ def analyze(arch: str, shape_name: str, mesh_name: str, chips: int,
 
     compute_s = flops / PEAK_FLOPS_BF16
     memory_s = arg_out / HBM_BW
-    collective_s = 0.0
+    collective_s = coll_bytes / NVLINK_BW
     terms = {"compute": compute_s, "memory": memory_s, "collective": collective_s}
     bound = max(terms, key=terms.get)
 
     return Roofline(
         arch=arch, shape=shape_name, mesh=mesh_name, chips=chips,
         flops_per_device=flops, bytes_per_device=arg_out,
-        collective_bytes_per_device=0.0,
+        collective_bytes_per_device=coll_bytes,
         compute_s=compute_s, memory_s=memory_s, collective_s=collective_s,
         bound=bound, model_flops=model_flops,
         useful_flops_ratio=(model_flops / (flops * chips)) if flops else 0.0,
-        peak_memory_bytes=peak_mem, collectives={}, note="; ".join(notes),
+        peak_memory_bytes=peak_mem, collectives=coll, note=note,
     )
 
 

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers
-from repro_torch.models.transformer import (layer_slice, run_layers, stack_layers,
+from repro_torch.models.transformer import (embed_rows, layer_slice, run_layers, stack_layers,
                                             token_nll, unstack_layers)
 from repro_torch.utils.act_sharding import constrain, unshard
 
@@ -130,13 +130,13 @@ def _cross_from_cache(cfg, p: dict, x: torch.Tensor, xk: torch.Tensor,
                       xv: torch.Tensor, train: bool = False) -> torch.Tensor:
     """Cross-attention of x (B, S, D) against the cached encoder K/V
     (B, T, Hk, Dh).  The scores, softmax and weighted sum are the attention
-    core's (``layers.attend_core``: float64, rounded once), so a decode
-    step attends over the encoder exactly as the prefill's cross-attention
-    does."""
-    h_, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    core's (``layers.context``: float64, rounded once; per rank on a
+    mesh), so a decode step attends over the encoder exactly as the
+    prefill's cross-attention does."""
+    h_, dh = cfg.n_heads, cfg.head_dim
     b, s, _ = x.shape
-    q = layers.linear(p["wq"], x, train).reshape(b, s, hk, h_ // hk, dh)
-    ctx = layers.attend_core(cfg, q, xk, xv, None, x.dtype)
+    q = layers.split_heads(layers.linear(p["wq"], x, train), h_, dh)
+    ctx = layers.context(cfg, q, xk, xv, None, x.dtype)
     return layers.linear(p["wo"], ctx.reshape(b, s, h_ * dh), train)
 
 
@@ -152,7 +152,7 @@ def _head(cfg, params: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _embed(cfg, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    x = (params["embed"][tokens] * math.sqrt(cfg.d_model)).to(torch.float32)
+    x = (embed_rows(params["embed"], tokens) * math.sqrt(cfg.d_model)).to(torch.float32)
     return constrain(x, "residual")            # see transformer._embed
 
 

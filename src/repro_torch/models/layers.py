@@ -26,7 +26,7 @@ from repro_torch.kernels import ops
 from repro_torch.plan import registry
 from repro_torch.plan import runtime as plan_runtime
 from repro_torch.sparse import format as sparse_format
-from repro_torch.utils.act_sharding import constrain, is_dtensor
+from repro_torch.utils.act_sharding import constrain, is_dtensor, unshard
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +293,14 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 Q_CHUNK = 1024
 
 
-def _split_heads(x: torch.Tensor, n_heads: int, dh: int) -> torch.Tensor:
+def split_heads(x: torch.Tensor, n_heads: int, dh: int) -> torch.Tensor:
+    """(..., H * Dh) -> (..., H, Dh).  A DTensor whose features are split
+    over a mesh axis that does not divide H is gathered on them first: the
+    heads could not carry that split (the head-axis chain of
+    ``act_sharding.spec_for`` then leaves H replicated on that axis)."""
+    if is_dtensor(x) and any(pl.is_shard(x.ndim - 1) and n_heads % x.device_mesh.shape[i]
+                             for i, pl in enumerate(x.placements)):
+        x = unshard(x, -1)
     return x.reshape(tuple(x.shape[:-1]) + (n_heads, dh))
 
 
@@ -390,9 +397,9 @@ def attention(cfg, p: dict, x: torch.Tensor, *, pos: torch.Tensor, is_global: bo
     b, s, _ = x.shape
 
     src = x if kv_x is None else kv_x
-    q = _split_heads(linear(p["wq"], x, train), h, dh)         # (B,S,H,Dh)
-    k = _split_heads(linear(p["wk"], src, train), hk, dh)      # (B,S|T,Hk,Dh)
-    v = _split_heads(linear(p["wv"], src, train), hk, dh)
+    q = split_heads(linear(p["wq"], x, train), h, dh)         # (B,S,H,Dh)
+    k = split_heads(linear(p["wk"], src, train), hk, dh)      # (B,S|T,Hk,Dh)
+    v = split_heads(linear(p["wv"], src, train), hk, dh)
     if "qn" in p:
         q = rmsnorm(p["qn"], q, cfg.norm_eps)
         k = rmsnorm(p["kn"], k, cfg.norm_eps)
@@ -462,14 +469,22 @@ def attention(cfg, p: dict, x: torch.Tensor, *, pos: torch.Tensor, is_global: bo
     # gives every layout the same bits with high probability (not
     # certainty: a float64 value within its own error of a float32 rounding
     # boundary can still round either way).
-    if is_dtensor(q):
-        ctx = constrain(_context_mesh(cfg, q, k, v, mask, x.dtype), "attn_q")
-    else:
-        ctx = _context(cfg, q, k, v, mask, x.dtype)
+    ctx = context(cfg, q, k, v, mask, x.dtype)
     out = linear(p["wo"], ctx.reshape(x.shape[0], x.shape[1], h * dh), train)
     if return_kv:
         return out, (k, v)
     return out, new_cache
+
+
+def context(cfg, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            mask: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor:
+    """The attention context of q (B, S, H, Dh) against k, v (B, T, Hk, Dh)
+    under ``mask``, in ``dtype``, to be flattened to (B, S, H * Dh): on a
+    device mesh per rank (:func:`_context_mesh`, pinned to the query
+    layout), else :func:`_context`."""
+    if is_dtensor(q):
+        return constrain(_context_mesh(cfg, q, k, v, mask, dtype), "attn_q")
+    return _context(cfg, q, k, v, mask, dtype)
 
 
 def _context(cfg, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers
+from repro_torch.utils.act_sharding import is_dtensor
 
 
 def _dims(cfg) -> tuple[int, int, int, int]:
@@ -134,25 +135,62 @@ def ssm_forward(cfg, p: dict, u: torch.Tensor, train: bool = True, *,
     decode cache's ``conv`` leaf).  With both supplied, running a sequence
     in segments equals the unsegmented call.
     """
-    b, s, _ = u.shape
+    zxbcdt = layers.linear(p["in_proj"], u, train)
+    y, final = _mixer(cfg, _forward_core, p, (zxbcdt, initial_state, initial_conv), 2)
+    return layers.linear(p["out_proj"], y, train), final
+
+
+def _forward_core(cfg, zxbcdt, initial_state, initial_conv, conv_w, conv_b, dt_bias, a_log,
+                  d_skip, norm_g):
+    """:func:`ssm_forward` between the projections: the in_proj output
+    (B, S, M) -> (the out_proj input (B, S, di), the final state)."""
+    b, s, _ = zxbcdt.shape
     di, n, nh, _ = _dims(cfg)
     hd = cfg.ssm_head_dim
 
-    z, xs, bs, cs, dt = _split_in(cfg, layers.linear(p["in_proj"], u, train))
+    z, xs, bs, cs, dt = _split_in(cfg, zxbcdt)
     xbc = torch.cat([xs, bs, cs], dim=-1)                          # (B,S,conv_dim)
-    xbc = layers.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"], init=initial_conv))
+    xbc = layers.silu(_causal_conv(xbc, conv_w, conv_b, init=initial_conv))
     xs, bs, cs = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
 
-    dt = F.softplus(dt + p["dt_bias"])                             # (B,S,H)
-    a = -torch.exp(p["A_log"])                                     # (H,) negative
+    dt = F.softplus(dt + dt_bias)                                  # (B,S,H)
+    a = -torch.exp(a_log)                                          # (H,) negative
     xh = xs.reshape(b, s, nh, hd)
     xd = xh * dt[..., None]
     y, final = ssd_chunked(xd, dt * a, bs, cs, min(cfg.ssm_chunk, s),
                            init_state=initial_state)
-    y = y + xh * p["D"][None, None, :, None]
+    y = y + xh * d_skip[None, None, :, None]
     y = y.reshape(b, s, di)
-    y = layers.rmsnorm(p["norm"], y * layers.silu(z), cfg.norm_eps)
-    return layers.linear(p["out_proj"], y, train), final
+    return layers.rmsnorm({"g": norm_g}, y * layers.silu(z), cfg.norm_eps), final
+
+
+def _mixer(cfg, core, p: dict, batch: tuple, n_out: int):
+    """``core(cfg, *batch, conv_w, conv_b, dt_bias, A_log, D, norm g)``, of
+    ``n_out`` outputs.
+
+    ``batch`` holds the in_proj output first, then caches (or None), each
+    with the batch leading.  On a device mesh (the in_proj output a
+    DTensor) the core runs per rank (``local_map``) on its rows of the
+    batch, split over the data axes as the in_proj output's are, with every
+    feature and the fp params whole: the scan's heads do not split over
+    'model' with the (x, B, C) channels they share, and DTensor's rules
+    for the scan's views and einsums differ between torch versions.  Its
+    outputs come back in the same placements."""
+    params = (p["conv_w"], p["conv_b"], p["dt_bias"], p["A_log"], p["D"], p["norm"]["g"])
+    x = batch[0]
+    if not is_dtensor(x):
+        return core(cfg, *batch, *params)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    rows = tuple(pl if name != "model" and pl == Shard(0) else Replicate()
+                 for name, pl in zip(mesh.mesh_dim_names, x.placements))
+    whole = (Replicate(),) * mesh.ndim
+    fn = local_map(lambda *a: core(cfg, *a), out_placements=(list(rows),) * n_out,
+                   in_placements=tuple(None if t is None else rows for t in batch)
+                   + (whole,) * len(params), device_mesh=mesh, redistribute_inputs=True)
+    return fn(*batch, *params)
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -190,26 +228,35 @@ def init_ssm_cache(cfg, batch: int, dtype=torch.float32, device="cuda") -> dict:
 def ssm_decode_step(cfg, p: dict, u: torch.Tensor, cache: dict,
                     train: bool = False) -> tuple[torch.Tensor, dict]:
     """Single-token step.  u (B, 1, D) -> (y (B, 1, D), new {'conv','state'})."""
-    b = u.shape[0]
+    zxbcdt = layers.linear(p["in_proj"], u[:, 0, :], train)
+    y, conv, state = _mixer(cfg, _decode_core, p, (zxbcdt, cache["conv"], cache["state"]), 3)
+    out = layers.linear(p["out_proj"], y, train)[:, None, :]
+    return out, {"conv": conv, "state": state}
+
+
+def _decode_core(cfg, zxbcdt, conv_cache, state_cache, conv_w, conv_b, dt_bias, a_log,
+                 d_skip, norm_g):
+    """:func:`ssm_decode_step` between the projections: the in_proj output
+    (B, M) and the caches -> (the out_proj input (B, di), the new conv and
+    state caches)."""
+    b = zxbcdt.shape[0]
     di, n, nh, _ = _dims(cfg)
     hd = cfg.ssm_head_dim
 
-    z, xs, bs, cs, dt = _split_in(cfg, layers.linear(p["in_proj"], u[:, 0, :], train))
+    z, xs, bs, cs, dt = _split_in(cfg, zxbcdt)
     xbc = torch.cat([xs, bs, cs], dim=-1)                          # (B,conv_dim)
 
     # Rolling conv state: window = [conv_state ; x_t]
-    win = torch.cat([cache["conv"], xbc[:, None, :]], dim=1)       # (B,W,C)
-    conv_out = torch.sum(win * p["conv_w"][None, :, :], dim=1) + p["conv_b"]
+    win = torch.cat([conv_cache, xbc[:, None, :]], dim=1)          # (B,W,C)
+    conv_out = torch.sum(win * conv_w[None, :, :], dim=1) + conv_b
     xbc = layers.silu(conv_out)
     xs, bs, cs = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
 
-    dt = F.softplus(dt + p["dt_bias"])                             # (B,H)
-    a = torch.exp(dt * (-torch.exp(p["A_log"])))                   # (B,H) decay
+    dt = F.softplus(dt + dt_bias)                                  # (B,H)
+    a = torch.exp(dt * (-torch.exp(a_log)))                        # (B,H) decay
     xh = xs.reshape(b, nh, hd)
-    state = cache["state"] * a[..., None, None] + torch.einsum(
+    state = state_cache * a[..., None, None] + torch.einsum(
         "bn,bhp->bhpn", bs, xh * dt[..., None])
-    y = torch.einsum("bn,bhpn->bhp", cs, state) + xh * p["D"][None, :, None]
+    y = torch.einsum("bn,bhpn->bhp", cs, state) + xh * d_skip[None, :, None]
     y = y.reshape(b, di)
-    y = layers.rmsnorm(p["norm"], y * layers.silu(z), cfg.norm_eps)
-    out = layers.linear(p["out_proj"], y, train)[:, None, :]
-    return out, {"conv": win[:, 1:, :], "state": state}
+    return layers.rmsnorm({"g": norm_g}, y * layers.silu(z), cfg.norm_eps), win[:, 1:, :], state

@@ -39,7 +39,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.utils.act_sharding import constrain, unshard
+from repro_torch.utils.act_sharding import constrain, is_dtensor, unshard
 
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
@@ -116,6 +116,12 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> dict:
     return {"blocks": stack_layers(blocks), **init_head(cfg, generator, device)}
 
 
+def global_flags(cfg, device="cuda") -> torch.Tensor:
+    """Each layer's ``is_global`` flag, (L,) bool."""
+    return torch.tensor([cfg.layer_is_global(i) for i in range(cfg.n_layers)],
+                        dtype=torch.bool, device=resolve_device(device))
+
+
 def layer_slice(tree, i: int):
     """The ``i``-th layer of a stacked params (or cache) tree."""
     if isinstance(tree, dict):
@@ -128,11 +134,13 @@ def unstack_layers(tree, n: int) -> list:
     along ``L``.  Its backward is one ``stack`` per leaf; slicing layer by
     layer (:func:`layer_slice`) would write a zero tensor of the whole stack
     into the gradient for every layer (2.1 GB per layer and MLP projection
-    of the full-width bitnet)."""
+    of the full-width bitnet).  A DTensor leaf split along ``L`` (a 2-D
+    row-parallel leaf whose ``L`` divides 'model') is gathered along it
+    first: DTensor does not unbind a split dimension."""
     if isinstance(tree, dict):
         per = {k: unstack_layers(v, n) for k, v in tree.items()}
         return [{k: per[k][i] for k in tree} for i in range(n)]
-    return list(torch.unbind(tree))
+    return list(torch.unbind(unshard(tree, 0)))
 
 
 # ---------------------------------------------------------------------------
@@ -200,7 +208,9 @@ def _ssm_prefill_cache(cfg, p: dict, h: torch.Tensor, final_state: torch.Tensor,
     The pre-conv xBC tail is recomputed: one more ``in_proj`` call, on the
     last W-1 positions."""
     tail = h[:, -(cfg.ssm_conv_width - 1):, :]
-    _, xs, bs, cs, _ = ssm_lib._split_in(cfg, layers.linear(p["in_proj"], tail, train))
+    # On a mesh the features are gathered before they are cut (identity off one).
+    zxbcdt = unshard(layers.linear(p["in_proj"], tail, train), -1)
+    _, xs, bs, cs, _ = ssm_lib._split_in(cfg, zxbcdt)
     return {"conv": torch.cat([xs, bs, cs], dim=-1), "state": final_state}
 
 
@@ -239,6 +249,34 @@ def _head(cfg, params: dict, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  On a device mesh (the table a DTensor) each rank
+    gathers its own tokens' rows (``local_map``), the tokens split over the
+    data axes as they come, from the table split on d_model over 'model'
+    (the vocab-split table is re-split: an all-to-all); the rows come back
+    split so.  DTensor's own rule for the gather refuses tokens split over
+    two mesh axes (the multi-pod mesh's pod and data) in some torch
+    versions."""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    if not is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+    split_d = table.shape[1] % mesh.shape[names.index("model")] == 0
+    rows = tuple(pl if name != "model" and pl == Shard(0) else Replicate()
+                 for name, pl in zip(names, tokens.placements))
+    wpl = tuple(Shard(1) if name == "model" and split_d else Replicate() for name in names)
+    opl = tuple(Shard(tokens.ndim) if name == "model" and split_d else pl
+                for name, pl in zip(names, rows))
+    fn = local_map(lambda w, ids: w[ids], out_placements=list(opl), in_placements=(wpl, rows),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(table, tokens)
+
+
 def _embed(cfg, params: dict, tokens: torch.Tensor,
            patches: torch.Tensor | None = None) -> torch.Tensor:
     """Token embeddings (B, S, D); with a vision frontend and ``patches``
@@ -249,7 +287,7 @@ def _embed(cfg, params: dict, tokens: torch.Tensor,
     CPU's, and patch rows one ulp apart can move an int8 activation code in
     the first layer (the reason the attention core and rmsnorm sum in
     float64, ``models/layers.py``)."""
-    x = params["embed"][tokens] * math.sqrt(cfg.d_model)
+    x = embed_rows(params["embed"], tokens) * math.sqrt(cfg.d_model)
     if cfg.frontend == "vision" and patches is not None:
         wd = params["frontend_proj"]["wd"]
         proj = (patches.to(torch.float64) @ wd.to(torch.float64)).to(torch.float32)

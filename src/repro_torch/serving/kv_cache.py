@@ -216,6 +216,15 @@ class PagedKVCache:
         pad = np.zeros((self.slots, view_blocks - self.max_blocks), np.int32)
         return np.concatenate([self.table, pad], axis=1)
 
+    def table_view(self, view_blocks: int) -> torch.Tensor:
+        """:meth:`host_table` as an int32 tensor on the pools' device."""
+        return torch.from_numpy(np.ascontiguousarray(self.host_table(view_blocks))).to(
+            self.device)
+
+    def live_tokens(self) -> int:
+        """Live tokens over every slot."""
+        return int(self.lengths.sum())
+
     # -- invariants ----------------------------------------------------------
 
     def check(self) -> None:

@@ -97,6 +97,14 @@ class PaddedBlockSparseTernary:
     s_steps: int                # per-strip walk extent (>= any strip's count)
 
     @property
+    def k(self) -> int:
+        return self.shape[0]
+
+    @property
+    def m(self) -> int:
+        return self.shape[1]
+
+    @property
     def grid(self) -> tuple:
         bk, bm = self.block_shape
         return (-(-self.shape[0] // bk), -(-self.shape[1] // bm))
@@ -105,6 +113,12 @@ class PaddedBlockSparseTernary:
     def n_live(self) -> torch.Tensor:
         """Live blocks: data here (the static shape is ``max_live``)."""
         return torch.sum(self.counts)
+
+    @property
+    def block_density(self) -> torch.Tensor:
+        """The live fraction of the block grid."""
+        kb, mb = self.grid
+        return self.n_live / max(kb * mb, 1)
 
     def nbytes(self) -> int:
         """Device bytes: the pools at ``max_live`` slots, the schedule, the

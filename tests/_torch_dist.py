@@ -337,11 +337,14 @@ def serving_rank(rank: int, n: int, arch: str, prompt_len: int, steps: int) -> d
     cfg = reduced(arch)
     params = freeze_params(port_params(arch), sparse=False)
     b, max_len = 2, prompt_len + steps + 1
-    toks = torch.from_numpy(np.random.default_rng(3).integers(
-        0, cfg.vocab_size, (b, prompt_len))).long()
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, prompt_len))).long()}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(
+            rng.standard_normal((b, cfg.enc_seq, cfg.d_model)).astype(np.float32))
 
     def greedy(prefill, decode, cache):
-        logits, cache = prefill({"tokens": toks}, cache)
+        logits, cache = prefill(batch, cache)
         out = [logits]
         for t in range(prompt_len, prompt_len + steps):
             logits, cache = decode(out[-1].argmax(-1), cache, t)
@@ -405,3 +408,111 @@ def train_mesh_rank(rank: int, n: int, argv: list) -> dict:
     finally:
         train_main.jit_train_step, mesh_lib.make_production_mesh = real, make
     return {"rc": rc, "jit_steps": steps[0]}
+
+
+def _materialized(tree, vocab: int, rng: np.random.Generator):
+    """Real CPU tensors of a meta tree's shapes and dtypes: token ids below
+    ``vocab`` for integer leaves, zeros for the rest (caches, stubs)."""
+    if isinstance(tree, dict):
+        return {k: _materialized(v, vocab, rng) for k, v in tree.items()}
+    if tree.dtype.is_floating_point:
+        return torch.zeros(tree.shape, dtype=tree.dtype)
+    return torch.from_numpy(rng.integers(0, vocab, tuple(tree.shape))).to(tree.dtype)
+
+
+# The dry-run cells held against real ranks on (2, 2): name -> (arch,
+# (shape fields), kwargs of ``dryrun.lower_cell``), reduced configs.
+DRYRUN_CELLS = {
+    "bitnet_decode": ("bitnet-2b-4t", ("d", 32, 4, "decode"), {}),
+    "bitnet_prefill": ("bitnet-2b-4t", ("p", 32, 4, "prefill"), {}),
+    "moe_decode": ("deepseek-moe-16b", ("d", 32, 4, "decode"), {}),
+    "bitnet_train": ("bitnet-2b-4t", ("t", 32, 4, "train"), {"fsdp": False}),
+    "bitnet_train_fsdp": ("bitnet-2b-4t", ("t", 32, 4, "train"), {"fsdp": True}),
+}
+
+
+def fake_world_counts(name: str, device_type: str = "cuda") -> dict:
+    """The dry-run's per-device counts of ``DRYRUN_CELLS[name]`` on (2, 2),
+    traced as rank 0 of a fake world of ``device_type``: FLOPs, kernel
+    operations and calls by kernel, collective bytes by kind."""
+    import repro_torch.configs as configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world, make_mesh
+
+    arch, fields, kw = DRYRUN_CELLS[name]
+    mesh = make_mesh((2, 2), ("data", "model"))
+    with fake_world(mesh, device_type) as dm:
+        lowered, _ = dryrun.lower_cell(configs.get(arch).reduced(),
+                                       configs.ShapeConfig(*fields), mesh, device_mesh=dm, **kw)
+        m = dryrun.measure(lowered, mesh)
+    return {"flops": m["counts"]["flops"], "kernel_ops": m["counts"]["kernel_ops"],
+            "kernels": m["kernels"], "collectives": m["collectives"]}
+
+
+def dryrun_counts_rank(rank: int, n: int, cells: dict) -> dict:
+    """Per cell of ``cells`` (name -> (arch, (shape fields), kwargs of
+    ``dryrun.lower_cell``)): the dry-run's counter (``dryrun.MetaTrace`` and
+    the kernel tally) around this rank's share of the same step on real
+    tensors of the reduced config, on the (2, 2) mesh of this gloo world:
+    the serve cells through ``dryrun.mesh_cells``, the train cell through
+    ``jit_train_step``, built as ``lower_cell`` builds them.  On the CPU a
+    kernel wrapper takes the plain version, whose ops are not the kernel's:
+    here each call runs with the trace paused, and once more on meta copies
+    of its inputs so that its meta branch tallies it as on the dry-run."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    import repro_torch.configs as configs
+    from repro_torch.kernels import tally, tsar_matmul
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model_zoo, moe
+    from repro_torch.optim import OptConfig
+    from repro_torch.serving.engine import freeze_params
+    from repro_torch.train import init_state, jit_train_step
+
+    dm = mesh22(n)
+    real = tsar_matmul.tsar_matmul_packed
+
+    def paused(*args):
+        with _disable_current_modes():
+            real(*(a.to("meta") for a in args))
+            return real(*args)
+
+    out = {}
+    tsar_matmul.tsar_matmul_packed = paused
+    try:
+        for name, (arch, fields, kw) in cells.items():
+            cfg, shape = reduced(arch), configs.ShapeConfig(*fields)
+            rng = np.random.default_rng(0)
+            gen = torch.Generator().manual_seed(0)
+            inputs = _materialized(model_zoo.input_specs(cfg, shape), cfg.vocab_size, rng)
+            if shape.kind == "train":
+                opt_cfg = OptConfig(moment_dtype="bfloat16" if cfg.n_params() > dryrun.BIG_PARAMS
+                                    else "float32")
+                state = init_state(cfg, gen, opt_cfg, device="cpu")
+                step = jit_train_step(cfg, opt_cfg, dm, state, inputs, remat=True,
+                                      fsdp=kw.get("fsdp", True))
+                placed = step.place(state)
+                run = lambda: step(placed, inputs)  # noqa: E731
+            else:
+                params = freeze_params(model_zoo.init_params(cfg, gen, "cpu"), sparse=False)
+                cells_ = dryrun.mesh_cells(cfg, params, dm,
+                                           fsdp=dryrun.serve_fsdp(cfg, dm, "packed"))
+                cache = cells_.place_cache(inputs.pop("cache"))
+                if shape.kind == "prefill":
+                    run = lambda: cells_.prefill(inputs, cache)  # noqa: E731
+                else:
+                    run = lambda: cells_.decode_step(inputs["tokens"], cache,  # noqa: E731
+                                                     shape.seq_len - 1)
+            moe.EP_CALLS["expert_parallel"] = 0
+            trace = dryrun.MetaTrace(set())
+            del tally.TALLY[:]
+            with trace:
+                run()
+            out[name] = {"flops": float(trace.flops), "kernel_ops": float(tally.ops()),
+                         "kernels": tally.counts(),
+                         "collectives": {k: float(v) for k, v in trace.collectives.items()},
+                         "ep_calls": moe.EP_CALLS["expert_parallel"]}
+            del tally.TALLY[:]
+    finally:
+        tsar_matmul.tsar_matmul_packed = real
+    return out

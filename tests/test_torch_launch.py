@@ -291,28 +291,68 @@ class _MemStats:
     temp_size_in_bytes: float
 
 
+def _hlo(collectives: dict) -> str:
+    """A partitioned HLO module holding one f32 collective of each kind's
+    bytes, for the reference's ``hlo_program_costs``."""
+    lines = [f"  %c{i} = f32[{int(b) // 4}]{{0}} {kind}(%p), replica_groups={{}}"
+             for i, (kind, b) in enumerate(collectives.items())]
+    return "\n".join(["ENTRY %main (p: f32[4]) -> f32[4] {", "  %p = f32[4]{0} parameter(0)",
+                      *lines, "  ROOT %r = f32[4]{0} copy(%p)", "}"])
+
+
+def _assert_analyze_equal(chips, flops, args, outs, collectives):
+    """The reference's ``analyze`` on its per-device cost and a partitioned
+    module with ``collectives``, against the port's on the same per-device
+    counts (its kernel ops split off) and collective bytes: equal FLOPs,
+    bytes, collectives by kind, useful ratio and peak; each term the
+    reference's times the ratio of the two packages' constants (TPU v5e
+    there, H100 here: ``ICI_LINK_BW / NVLINK_BW`` for the collective term);
+    the bound the largest of the port's own terms."""
+    mem = _MemStats(args, outs, 3e9)
+    want = jrl.analyze("a", "s", "single", chips, {"flops": flops}, _hlo(collectives), 6e14,
+                       memory_stats=mem)
+    counts = {"flops": 0.75 * flops, "kernel_ops": 0.25 * flops}
+    got = roofline.analyze("a", "s", "single", chips, counts, 6e14,
+                           memory_stats=dataclasses.asdict(mem), collectives=collectives)
+    for key in ("flops_per_device", "bytes_per_device", "useful_flops_ratio",
+                "peak_memory_bytes", "model_flops", "collective_bytes_per_device",
+                "collectives"):
+        assert getattr(got, key) == pytest.approx(getattr(want, key), rel=1e-12), key
+    for term, ratio in (("compute_s", jrl.PEAK_FLOPS_BF16 / roofline.PEAK_FLOPS_BF16),
+                        ("memory_s", jrl.HBM_BW / roofline.HBM_BW),
+                        ("collective_s", jrl.ICI_LINK_BW / roofline.NVLINK_BW)):
+        assert getattr(got, term) == pytest.approx(getattr(want, term) * ratio, rel=1e-12), term
+    assert got.compute_s == pytest.approx(got.flops_per_device / roofline.PEAK_FLOPS_BF16)
+    assert got.memory_s == pytest.approx((args + outs) / roofline.HBM_BW)
+    terms = {"compute": got.compute_s, "memory": got.memory_s, "collective": got.collective_s}
+    assert got.bound == max(terms, key=terms.get) and got.note == ""
+    assert "| a " in roofline.format_table([got.to_json()])
+    return got
+
+
 @pytest.mark.parametrize("chips", [1, 256])
 @pytest.mark.parametrize("flops,args,outs", [(1e12, 1e9, 1e8), (1e9, 5e10, 1e9),
                                              (3e14, 2e11, 7e10), (0.0, 1e6, 0.0)])
 def test_analyze_equal_reference(chips, flops, args, outs):
-    """Same counts, same bound, FLOPs and bytes per device and useful ratio:
-    the reference's per-device cost against the port's global meta count
-    (its kernel ops split off) over ``chips``."""
-    mem = _MemStats(args, outs, 3e9)
-    want = jrl.analyze("a", "s", "single", chips, {"flops": flops}, "", 6e14, memory_stats=mem)
-    counts = {"flops": 0.75 * flops * chips, "kernel_ops": 0.25 * flops * chips}
-    got = roofline.analyze("a", "s", "single", chips, counts, 6e14,
-                           memory_stats=dataclasses.asdict(mem))
-    assert got.bound == want.bound
-    for key in ("flops_per_device", "bytes_per_device", "useful_flops_ratio",
-                "peak_memory_bytes", "model_flops"):
-        assert getattr(got, key) == pytest.approx(getattr(want, key), rel=1e-12), key
-    assert got.compute_s == pytest.approx(got.flops_per_device / roofline.PEAK_FLOPS_BF16)
-    assert got.memory_s == pytest.approx((args + outs) / roofline.HBM_BW)
-    assert got.collective_s == 0.0 and "collective term 0" in got.note
-    assert ("ideal split" in got.note) == (chips > 1)
-    rows = [got.to_json()]
-    assert "| a " in roofline.format_table(rows)
+    """Same per-device counts, no collectives: the reference's terms, bound
+    and ratios, and a collective term of 0."""
+    got = _assert_analyze_equal(chips, flops, args, outs, {})
+    assert got.collective_s == 0.0 and got.collectives == {}
+
+
+@pytest.mark.parametrize("chips", [4, 256])
+@pytest.mark.parametrize("flops,args,outs,collectives", [
+    (1e12, 1e9, 1e8, {"all-gather": 4e10}),
+    (1e9, 5e8, 1e6, {"all-reduce": 8e8, "reduce-scatter": 2e8}),
+    (3e14, 2e10, 7e9, {"all-gather": 6e11, "all-reduce": 1e9, "all-to-all": 4e9}),
+])
+def test_analyze_collective_bound_equal_reference(chips, flops, args, outs, collectives):
+    """Cells whose collectives bound the step: the port's bytes by kind are
+    the reference's from the partitioned module, and the bound is
+    ``collective``."""
+    got = _assert_analyze_equal(chips, flops, args, outs, collectives)
+    assert got.bound == "collective" and got.collective_bytes_per_device == sum(
+        collectives.values())
 
 
 def _records():

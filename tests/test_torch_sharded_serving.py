@@ -9,7 +9,11 @@ and every projection through ``tsar_matmul``'s wrapper on its local
 shards: per step 2 layers x 7 calls, with the column-parallel ones on half
 of M, the row-parallel ones on half of K, and the batch split over 'data'.
 Reduced deepseek-moe-16b: the same, through the experts' expert-parallel
-branch (counted), logits within 2^-8 and the greedy tokens equal.
+branch (counted), logits within 2^-8 and the greedy tokens equal.  Reduced
+mamba2-780m, hymba-1.5b and whisper-tiny (zero-mean random frames): logits
+``torch.equal`` and the same tokens, through the SSM mixer per rank on its
+batch rows, the cross-attention context per rank and the embedding rows per
+rank.
 """
 import numpy as np
 import pytest
@@ -55,3 +59,20 @@ def test_moe_cells_on_mesh_run_expert_parallel(tmp_path):
         # Every MoE layer of the prefill and of each decode step.
         assert res["ep_calls"] == cfg.n_layers * (STEPS + 1)
         assert all(len(c) == 7 * cfg.n_layers for c in res["calls"])
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b", "whisper-tiny"])
+def test_ssm_hybrid_encdec_cells_on_mesh_equal_unsharded(tmp_path, arch):
+    """``ssm._mixer`` runs the scan per rank on its rows (every feature
+    whole), ``layers.context`` the cross-attention per rank and
+    ``transformer.embed_rows`` the token rows per rank: each rank's logits
+    equal the unsharded cells', and so do the greedy tokens; every step
+    runs its projections through ``tsar_matmul``."""
+    cfg = reduced(arch)
+    outs = run_ranks(serving_rank, 4, tmp_path, arch, PROMPT, STEPS)
+    for rank, res in enumerate(outs):
+        assert len(res["mesh"]) == STEPS + 1
+        for got, want in zip(res["mesh"], res["plain"]):
+            np.testing.assert_array_equal(got, want, err_msg=f"rank {rank}")
+        assert _tokens(res["mesh"]) == _tokens(res["plain"])
+        assert all(len(c) >= 2 * cfg.n_layers for c in res["calls"])

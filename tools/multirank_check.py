@@ -5,7 +5,7 @@ the machine has, with no JAX: the rank functions of
 ``tests/test_torch_sharded_serving.py`` hold them wherever the check needs
 no reference.
 
-    python3 tools/multirank_check.py          # ~1-3 min of CPU
+    python3 tools/multirank_check.py          # ~1-4 min of CPU
 
 * the serving cells (``launch.dryrun.mesh_cells``) on a (2, 2) mesh:
   reduced bitnet-2b-4t logits equal to the unsharded cells', reduced
@@ -18,7 +18,13 @@ no reference.
   shard-sized;
 * a checkpoint saved from 4 ranks restored onto 2;
 * ``psum_compressed`` on 2 and 4 ranks (every rank the same mean, near the
-  float mean) and two compressed data-parallel steps on 2 ranks.
+  float mean) and two compressed data-parallel steps on 2 ranks;
+* the dry-run per device (``launch.dryrun`` on a fake world of 4 ranks,
+  ``launch.mesh.fake_world``): on (2, 2) its FLOPs, kernel tally and
+  collective bytes of each kind for reduced bitnet-2b-4t decode and
+  prefill, deepseek-moe-16b decode and the train cell with fsdp on and off
+  equal the same counter around rank 0 of 4 gloo ranks running the same
+  step; on the H100's device type the FLOPs and tally are the same.
 
 Prints one PASS/FAIL line per check and ``ALL_OK`` at the end; exits 1 if
 any check failed.
@@ -111,6 +117,20 @@ def main():
                        [td.lm_batch(cfg, 4, 16, s) for s in (10, 11)], timeout=300)
     check(got[0]["losses"] == got[1]["losses"] and all(np.isfinite(got[0]["losses"])),
           f"compressed DP step on 2 ranks: losses {got[0]['losses']}")
+
+    t0 = time.time()
+    outs = td.run_ranks(td.dryrun_counts_rank, 4, work, td.DRYRUN_CELLS, timeout=600)
+    for name in td.DRYRUN_CELLS:
+        fake = td.fake_world_counts(name, "cpu")
+        real = {k: v for k, v in outs[0][name].items() if k != "ep_calls"}
+        check(fake == real and all(o[name]["collectives"] == real["collectives"] for o in outs),
+              f"dry-run {name} on (2, 2): fake world = rank 0 of 4 gloo ranks "
+              f"({fake['flops']:.0f} FLOPs, tally {fake['kernels']}, collectives "
+              f"{fake['collectives']})")
+        cuda = td.fake_world_counts(name, "cuda")
+        check(cuda["flops"] == fake["flops"] and cuda["kernels"] == fake["kernels"],
+              f"dry-run {name} on the H100's device type: collectives {cuda['collectives']}")
+    print(f"dry-run per device {time.time() - t0:.1f} s", flush=True)
     print("ALL_OK" if ok else "SOME_FAILED", flush=True)
     return 0 if ok else 1
 
