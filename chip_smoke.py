@@ -194,9 +194,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
    multi-pod 2 x 16 x 16 mesh, full width on meta, each cell traced as rank
    0 of a fake world of 256 (512) ranks, one process per CPU core: every
    cell ``ok``, every (fsdp) train cell with all-gather and reduce-scatter
-   bytes; per cell the collective bytes of each kind, the three terms and
-   the bound, both meshes' ``report`` tables and the sweep's wall time
-   printed.
+   bytes, and the mesh path's layout within its limits (``sweep_outcomes``:
+   the MoE train cells keep their experts on 'model' and move tokens by
+   all-to-all, bitnet's decode attends over a sequence-split cache); per
+   cell the bytes accessed, the collective bytes of each kind (all-to-all
+   among them), the three terms and the bound, both meshes' ``report``
+   tables and the sweep's wall time printed.
 19c. the three examples (``examples/torch_*.py``) through ``main()`` on the
    card: quickstart's loss falls and its serving launches ``tsar_matmul``;
    every request of serve_ternary finishes, with launches and a max step
@@ -215,7 +218,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    2 x 1024 (remat, 2 microbatches where the rows allow): loss within 1e-4
    of the plain ``loss_and_grads`` on the same batch and params, the state
    back in its placements, step time and peak device memory printed beside
-   the dry-run's prediction for that mesh; then two
+   the dry-run's prediction for that mesh; on a world of one neither the
+   split-KV attention nor the MoE token all-to-all runs (both paths are
+   the identity there); then two
    ``make_compressed_dp_train_step`` steps (2 x 1024 rows per rank): loss
    finite.  Any failure to start NCCL fails the run.
 
@@ -2590,7 +2595,9 @@ def sweep_phase(torch) -> list:
         coll = {k: f"{v:.4g}" for k, v in sorted(f["collectives"].items())}
         print(f"dry-run {r['arch']} {r['shape']} {r['mesh']} ({r['chips']} devices, "
               f"{r['mode']}): per device flops {f['flops_per_device']:.4g}, temp "
-              f"{r['memory_analysis']['temp_size_in_bytes']:.4g} B, collective bytes "
+              f"{r['memory_analysis']['temp_size_in_bytes']:.4g} B, bytes accessed "
+              f"{r['cost']['bytes accessed']:.4g} B, all-to-all "
+              f"{f['collectives'].get('all-to-all', 0.0):.4g} B, collective bytes "
               f"{coll}; compute {f['compute_s']:.4g} s, memory {f['memory_s']:.4g} s, "
               f"collective {f['collective_s']:.4g} s -> {f['bound']} ({r['wall_s']} s)",
               flush=True)
@@ -2599,6 +2606,7 @@ def sweep_phase(torch) -> list:
                      and f["collectives"].get("reduce-scatter", 0) > 0,
                      f"dry-run {r['arch']} {r['shape']} {r['mesh']}: fsdp train cell without "
                      f"all-gather and reduce-scatter bytes: {f['collectives']}")
+    sweep_outcomes(recs)
     n_bitnet = 2 * len(SWEEP_BITNET_SHAPES)
     print(f"dry-run sweep: {len(recs)}/{len(jobs)} cells ok per device ({len(jobs) - n_bitnet} "
           f"on 16 x 16, bitnet-2b-4t on 16 x 16 and 2 x 16 x 16, packed) in {wall:.1f} s "
@@ -2608,6 +2616,41 @@ def sweep_phase(torch) -> list:
         print(report.dryrun_table(recs, mesh))
         print(report.roofline_table(recs, mesh), flush=True)
     return recs
+
+
+def sweep_outcomes(recs: list) -> None:
+    """19b's gates on the mesh path's layout, per device (GB = 1e9 bytes;
+    the limits are set from the layout before it: experts gathered whole
+    on every rank and a sequence-split KV cache gathered in every layer):
+    llama4-maverick-400b's train_4k holds at most 64.78 GB of temp (twice
+    the ideal split) and all-gathers at least 10x less than 6,865.7 GB,
+    with all-to-all bytes; deepseek-moe-16b's train_4k holds less than
+    21.82 GB and all-gathers less than 146.2 GB; bitnet-2b-4t's decode_32k
+    moves at most 8.09 GB of collectives on both meshes and holds less than
+    6.04 GB (3.02 on 2 x 16 x 16)."""
+    by = {(r["arch"], r["shape"], r["mesh"]): r for r in recs}
+
+    def get(arch, shape, mesh="single"):
+        r = by[arch, shape, mesh]
+        return (r["memory_analysis"]["temp_size_in_bytes"] / 1e9,
+                {k: v / 1e9 for k, v in r["roofline"]["collectives"].items()})
+
+    temp, coll = get("llama4-maverick-400b-a17b", "train_4k")
+    _require(temp <= 64.78 and coll.get("all-gather", 0) * 10 <= 6865.7
+             and coll.get("all-to-all", 0) > 0,
+             f"dry-run llama4-maverick-400b train_4k: temp {temp:.2f} GB, collectives {coll}")
+    temp, coll = get("deepseek-moe-16b", "train_4k")
+    _require(temp < 21.82 and coll.get("all-gather", 0) < 146.2
+             and coll.get("all-to-all", 0) > 0,
+             f"dry-run deepseek-moe-16b train_4k: temp {temp:.2f} GB, collectives {coll}")
+    for mesh, temp_was in (("single", 6.04), ("multi", 3.02)):
+        temp, coll = get("bitnet-2b-4t", "decode_32k", mesh)
+        _require(sum(coll.values()) <= 8.09 and temp < temp_was,
+                 f"dry-run bitnet-2b-4t decode_32k {mesh}: temp {temp:.2f} GB, collectives "
+                 f"{coll}")
+    print("dry-run sweep outcomes: experts kept on 'model' (llama4-maverick-400b, "
+          "deepseek-moe-16b train_4k) and split-KV decode (bitnet-2b-4t decode_32k, both "
+          "meshes) within their limits", flush=True)
 
 
 def _example(name: str):
@@ -2702,6 +2745,11 @@ def mesh_phase(torch) -> dict:
                      f"mesh {dims} rank {r['rank']}: sharded loss {rt['loss']} vs plain "
                      f"{rt['plain_loss']}")
             _require(rt["same_placements"], f"mesh {dims}: the state changed placements")
+            # A world of one splits no cache on its sequence and no experts:
+            # the split-KV and expert-parallel paths stay out of the way.
+            _require(dims != (1, 1) or (rs["split_kv_calls"] == 0 and rt["all_to_all"] == 0),
+                     f"mesh {dims}: split-KV calls {rs['split_kv_calls']}, token all-to-alls "
+                     f"{rt['all_to_all']} on a world of one")
         rec = dryrun.run_cell(configs_get(ARCH), ShapeConfig("train_card", TRAIN_SEQ,
                                                              TRAIN_BATCH, "train"),
                               make_mesh(dims, ("data", "model")), f"{dims[0]}x{dims[1]}",
@@ -2783,7 +2831,7 @@ def mesh_serve(torch, cfg, dims: tuple, dev) -> dict:
 
     from repro_torch.kernels import tsar_matmul
     from repro_torch.launch import dryrun
-    from repro_torch.models import model_zoo
+    from repro_torch.models import layers, model_zoo
     from repro_torch.serving import freeze_params
 
     dm = _device_mesh(dims)
@@ -2812,16 +2860,27 @@ def mesh_serve(torch, cfg, dims: tuple, dev) -> dict:
             out.append(nxt)
         return {"tokens": torch.cat(out, 1).cpu(), "ms": ms, "launches": launches}
 
-    with torch.no_grad():
-        def plain_cache():
-            return model_zoo.init_cache(cfg, MESH_SLOTS, max_len, torch.float32, dev)
+    split_calls = [0]
+    attend_split = layers.attend_split
 
-        plain_run = [greedy(lambda b, c: model_zoo.prefill(cfg, params, b, c),
-                            lambda tk, c, t: model_zoo.decode_step(cfg, params, tk, c, t),
-                            plain_cache) for _ in range(2)]
-        cells = dryrun.mesh_cells(cfg, params, dm)
-        mesh_run = [greedy(cells.prefill, cells.decode_step,
-                           lambda: cells.place_cache(plain_cache())) for _ in range(2)]
+    def counted_split(*a, **kw):
+        split_calls[0] += 1
+        return attend_split(*a, **kw)
+
+    layers.attend_split = counted_split
+    try:
+        with torch.no_grad():
+            def plain_cache():
+                return model_zoo.init_cache(cfg, MESH_SLOTS, max_len, torch.float32, dev)
+
+            plain_run = [greedy(lambda b, c: model_zoo.prefill(cfg, params, b, c),
+                                lambda tk, c, t: model_zoo.decode_step(cfg, params, tk, c, t),
+                                plain_cache) for _ in range(2)]
+            cells = dryrun.mesh_cells(cfg, params, dm)
+            mesh_run = [greedy(cells.prefill, cells.decode_step,
+                               lambda: cells.place_cache(plain_cache())) for _ in range(2)]
+    finally:
+        layers.attend_split = attend_split
     del cells, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2832,7 +2891,7 @@ def mesh_serve(torch, cfg, dims: tuple, dev) -> dict:
             "prefill_ms": mesh_run[1]["ms"][0], "plain_prefill_ms": plain_run[1]["ms"][0],
             "decode_ms": statistics.median(mesh_run[1]["ms"][1:]),
             "plain_decode_ms": statistics.median(plain_run[1]["ms"][1:]),
-            "first_ms": mesh_run[0]["ms"][0]}
+            "first_ms": mesh_run[0]["ms"][0], "split_kv_calls": split_calls[0]}
 
 
 def mesh_train(torch, cfg, dims: tuple, dev) -> dict:
@@ -2841,6 +2900,7 @@ def mesh_train(torch, cfg, dims: tuple, dev) -> dict:
     params and batch."""
     from repro_torch.checkpoint.checkpointing import _flatten
     from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.models import moe
     from repro_torch.optim import OptConfig
     from repro_torch.train import init_state, jit_train_step, loss_and_grads
 
@@ -2864,6 +2924,7 @@ def mesh_train(torch, cfg, dims: tuple, dev) -> dict:
                           accum_steps=accum)
     placed = step.place(state)
     del state
+    moe.EP_CALLS["all_to_all"] = 0
     torch.cuda.reset_peak_memory_stats()        # the step's peak
     before = [(k, tuple(map(str, v.placements))) for k, v in _flatten(placed).items()]
     torch.cuda.synchronize()
@@ -2878,7 +2939,7 @@ def mesh_train(torch, cfg, dims: tuple, dev) -> dict:
     torch.cuda.empty_cache()
     return {"dims": dims, "accum": accum, "loss": loss, "plain_loss": plain_loss,
             "step_s": step_s, "plain_s": plain_s, "peak_gib": peak,
-            "same_placements": before == after}
+            "same_placements": before == after, "all_to_all": moe.EP_CALLS["all_to_all"]}
 
 
 def mesh_compressed(torch, cfg, n: int, dev) -> dict:

@@ -253,7 +253,7 @@ def tsar_lut_gemv(a: torch.Tensor, idx_pos: torch.Tensor, idx_zero: torch.Tensor
     blocks, mp = idx_pos.shape
     out = torch.empty((n, m), dtype=torch.float32, device=a.device)
     if meta:
-        tally.record("tsar_lut", n, blocks * c, mp)
+        tally.record("tsar_lut", n, blocks * c, mp, (a, idx_pos, idx_zero, w_scale, out))
         return out
     index = a.device.index if a.device.index is not None else torch.cuda.current_device()
     cfg = launch_config(n, blocks, mp, c, _sm_count(index))

@@ -37,6 +37,9 @@ from repro_torch.kernels import tally
 # Launch counter; chip_smoke.py zeroes it before driving the serving path.
 LAUNCHES = {"tsar_matmul": 0}
 
+# Weights per plane byte, the reference's name for it here.
+PACK = ternary.PACK
+
 # Constants of the CUDA source (csrc/tsar_matmul.cu).
 _COLS_PER_CTA = 64       # kBM
 _K_STEP = 32             # kKStep: k per mma, the split granule
@@ -210,7 +213,8 @@ def tsar_matmul_packed(a_q: torch.Tensor, a_scale: torch.Tensor,
     if n == 0:
         return out[:, :m]
     if meta:
-        tally.record("tsar_matmul", n, kp, mp)
+        tally.record("tsar_matmul", n, kp, mp,
+                     (a_q, a_scale, sign_plane, zero_plane, w_scale, out))
         return out if mp == m else out[:, :m].contiguous()
     index = a_q.device.index if a_q.device.index is not None else torch.cuda.current_device()
     cfg = launch_config(n, kp, mp, _sm_count(index))

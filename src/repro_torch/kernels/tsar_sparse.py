@@ -263,7 +263,8 @@ def _launch(symbol: str, counter: str, a_q, a_scale, sign_pool, zero_pool,
     kp, (k8, bmp) = a_q.shape[1], sign_pool.shape[1:]
     out = torch.empty((n, mb * bmp), dtype=torch.float32, device=a_q.device)
     if meta:
-        tally.record(counter, n, kp, mb * bmp)
+        tally.record(counter, n, kp, mb * bmp, (a_q, a_scale, sign_pool, zero_pool, kids,
+                                                slots, counts, w_scale, out))
         return out if bmp == bm else out.view(n, mb, bmp)[:, :, :bm].reshape(n, mb * bm)
     index = a_q.device.index if a_q.device.index is not None else torch.cuda.current_device()
     cfg = launch_config(n, 8 * k8, bmp, mb, s_steps, _sm_count(index))

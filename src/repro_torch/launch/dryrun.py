@@ -132,6 +132,23 @@ _COLLECTIVES = {
 # process-group lookup.  Any other op there raises: its bytes would be missed.
 _NOT_COLLECTIVES = {"wait_tensor", "_wrap_tensor_autograd", "mesh_get_process_group"}
 _COMM_NAMESPACES = {"c10d", "_c10d_functional", "_c10d_functional_autograd", "_dtensor"}
+# Ops that allocate and touch no memory: they access no bytes.
+_ALLOCATIONS = {"empty", "empty_strided", "empty_like", "new_empty", "new_empty_strided"}
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in pytree.tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def _accesses_bytes(func) -> bool:
+    """Whether ``func`` reads or writes tensor data: not a view (a result
+    that only aliases an input, as ``view``, ``transpose`` or ``select``
+    give) and not an allocation."""
+    if func._overloadpacket.__name__ in _ALLOCATIONS:
+        return False
+    return not any(r.alias_info is not None and not r.alias_info.is_write
+                   for r in func._schema.returns)
 
 
 class MetaTrace(TorchDispatchMode):
@@ -142,7 +159,10 @@ class MetaTrace(TorchDispatchMode):
     first appearance: views and in-place results share it), and the bytes
     of each kind of collective (``collectives``).  ``peak`` is the maximum
     of the live bytes.  Storages in ``exclude`` (the step's arguments) are
-    not counted.  One mode does all of it because each Python dispatch mode
+    not counted.  ``bytes_accessed`` adds up, over the local ops that are
+    not collectives, the bytes of each op's tensor inputs and outputs
+    (every operand read once, every result written once); a view moves
+    nothing, nor does an allocation.  One mode does all of it because each Python dispatch mode
     costs every op of the trace a Python call, and ``FlopCounterMode`` also
     tries to decompose every op its table does not list; the counts equal
     ``FlopCounterMode``'s (``tests/test_torch_launch.py``).
@@ -164,6 +184,7 @@ class MetaTrace(TorchDispatchMode):
         self.flops = 0
         self.live = 0
         self.peak = 0
+        self.bytes_accessed = 0
         self.collectives: dict[str, int] = {}
         self._seen: set = set()
 
@@ -179,9 +200,7 @@ class MetaTrace(TorchDispatchMode):
         if kind is None:
             raise RuntimeError(f"the dry-run does not know the collective {func}")
         result = args[0] if func.namespace == "c10d" else out
-        nbytes = sum(t.numel() * t.element_size() for t in pytree.tree_leaves(result)
-                     if isinstance(t, torch.Tensor))
-        self.collectives[kind] = self.collectives.get(kind, 0) + nbytes
+        self.collectives[kind] = self.collectives.get(kind, 0) + _nbytes(result)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -192,6 +211,8 @@ class MetaTrace(TorchDispatchMode):
             return out          # DTensor's sharding propagation (see the docstring)
         if func.namespace in _COMM_NAMESPACES:
             self._collective(func, args, out)
+        elif _accesses_bytes(func):
+            self.bytes_accessed += _nbytes((args, kwargs)) + _nbytes(out)
         formula = flop_registry.get(func._overloadpacket)
         if formula is not None:
             self.flops += formula(*args, **kwargs, out_val=out)
@@ -371,20 +392,22 @@ def _packed(params) -> bool:
 
 
 def measure(lowered: Lowered, mesh: Mesh) -> dict:
-    """Run the step once on meta: FLOPs, kernel tally, live bytes,
-    collectives, all per device.  Returns the counts, the per-device
-    ``memory_analysis``, the kernel calls and the collective bytes by
-    kind."""
+    """Run the step once on meta: FLOPs, kernel tally, live bytes, bytes
+    accessed (the local ops' and the kernel calls'), collectives, all per
+    device.  Returns the counts, the per-device ``memory_analysis``, the
+    kernel calls and the collective bytes by kind."""
     trace = MetaTrace(_storage_keys(lowered.args))
     del tally.TALLY[:]
     try:
         with trace:
             out = lowered.run()
         kernels, kernel_ops, n_calls = tally.counts(), tally.ops(), len(tally.TALLY)
+        kernel_bytes = tally.nbytes()
     finally:
         del tally.TALLY[:]
     counts = {"flops": float(trace.flops), "kernel_ops": float(kernel_ops),
-              "kernel_calls": float(n_calls)}
+              "kernel_calls": float(n_calls),
+              "bytes accessed": float(trace.bytes_accessed + kernel_bytes)}
     mem = {"argument_size_in_bytes": float(tree_bytes(mesh, lowered.args, lowered.arg_specs)),
            "output_size_in_bytes": float(tree_bytes(mesh, out, lowered.out_specs)),
            "temp_size_in_bytes": float(trace.peak)}

@@ -5,7 +5,7 @@ Three terms per (arch x shape x mesh), in seconds, analytic, on the H100 SXM
 data sheet's constants (``repro_torch.core.hw``), all per device:
 
     compute    = FLOPs / PEAK_FLOPS_BF16
-    memory     = (argument + output bytes) / HBM_BW
+    memory     = max(bytes accessed, argument + output bytes) / HBM_BW
     collective = collective bytes / NVLINK_BW
 
 The dry-run (``launch/dryrun.py``) traces one device's share of the step on
@@ -14,10 +14,14 @@ one device.  FLOPs are those ``torch.utils.flop_counter``'s formulas count
 over its local ops (``dryrun.MetaTrace``, equal to ``FlopCounterMode``'s
 count), plus the operations of the hand-written kernels, which the meta
 branch of each wrapper records in ``kernels.tally`` (2*n*k*m per call): the
-flop counter cannot see inside them.  The memory term is the reference's own
-sound floor: every argument byte (weights, caches, batch) crosses HBM at
-least once per step, and so does every output byte; PyTorch has no compiler
-estimate of bytes accessed to take the larger of.  The collective bytes
+flop counter cannot see inside them.  The memory term takes, as the
+reference's does, the larger of the bytes accessed and the sound floor of
+every argument byte (weights, caches, batch) and every output byte crossing
+HBM once per step.  The bytes accessed are the eager step's own traffic, op
+by op (``dryrun.MetaTrace``: each local op's inputs and outputs, views and
+allocations excepted, plus each kernel call's operands and output from the
+tally), where the reference reads XLA's estimate for its fused program: the
+formula is the reference's, the counts are the port's.  The collective bytes
 follow the reference's convention (``collective_bytes_from_hlo``): each
 collective's result per device, by kind, an async pair once; the link rate
 is NVLink 4's 450 GB/s per direction in place of the TPU's ICI link, one
@@ -62,7 +66,8 @@ def analyze(arch: str, shape_name: str, mesh_name: str, chips: int,
     """The three roofline terms of one cell, from per-device counts.
 
     ``counts``: ``"flops"``, the flop counter's count over the meta trace,
-    and ``"kernel_ops"``, the kernel tally's operations.
+    ``"kernel_ops"``, the kernel tally's operations, and ``"bytes
+    accessed"`` (the reference's cost key), the trace's and the tally's.
     ``memory_stats``: ``argument_size_in_bytes``, ``output_size_in_bytes``
     and ``temp_size_in_bytes`` (``run_cell``'s ``memory_analysis``).
     ``collectives``: bytes by kind (``all-reduce``, ``all-gather``, ...).
@@ -77,15 +82,17 @@ def analyze(arch: str, shape_name: str, mesh_name: str, chips: int,
                         + memory_stats.get("output_size_in_bytes", 0))
         peak_mem = float(memory_stats.get("temp_size_in_bytes", 0) + arg_out) or None
 
+    in_bytes = float(max(counts.get("bytes accessed", 0.0), arg_out))
+
     compute_s = flops / PEAK_FLOPS_BF16
-    memory_s = arg_out / HBM_BW
+    memory_s = in_bytes / HBM_BW
     collective_s = coll_bytes / NVLINK_BW
     terms = {"compute": compute_s, "memory": memory_s, "collective": collective_s}
     bound = max(terms, key=terms.get)
 
     return Roofline(
         arch=arch, shape=shape_name, mesh=mesh_name, chips=chips,
-        flops_per_device=flops, bytes_per_device=arg_out,
+        flops_per_device=flops, bytes_per_device=in_bytes,
         collective_bytes_per_device=coll_bytes,
         compute_s=compute_s, memory_s=memory_s, collective_s=collective_s,
         bound=bound, model_flops=model_flops,

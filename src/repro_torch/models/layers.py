@@ -15,6 +15,7 @@ synchronous decode, chunked append, full sequence) and its cross-attention
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -334,22 +335,55 @@ def write_rows(c: torch.Tensor, u: torch.Tensor, start: torch.Tensor) -> torch.T
 def _write_rows_mesh(c, u: torch.Tensor, start: torch.Tensor):
     """:func:`write_rows` of a cache view that is a DTensor: DTensor has no
     rule for an in-place ``index_put_`` into a batch-sharded tensor, so each
-    rank writes its own block (``local_map``), the rows ``u`` and ``start``
-    split as the cache is.  A sequence-sharded cache is gathered along the
-    sequence first and split again after."""
+    rank writes its own block (``local_map``), ``start`` split as the
+    cache's batch is.  A cache split on its sequence keeps its split (no
+    gather): the rows ``u`` come whole along it and each rank writes only
+    those whose positions fall in its block (:func:`_write_block`)."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = c.device_mesh
-    cpl = tuple(Replicate() if pl == Shard(1) else pl for pl in c.placements)
+    cpl = tuple(c.placements)
+    upl = tuple(Replicate() if pl == Shard(1) else pl for pl in cpl)
     spl = tuple(Shard(0) if pl == Shard(0) else Replicate() for pl in cpl)
     if not isinstance(start, DTensor):
         start = DTensor.from_local(start.to(device=u.device, dtype=torch.long).expand(c.shape[0]),
                                    mesh, (Replicate(),) * mesh.ndim, run_check=False)
-    fn = local_map(write_rows, out_placements=list(cpl), in_placements=(cpl, cpl, spl),
-                   device_mesh=mesh, redistribute_inputs=True)
-    out = fn(c, u, start)
-    return out if cpl == tuple(c.placements) else out.redistribute(mesh, c.placements)
+    if upl == cpl:
+        fn = write_rows
+    else:
+        fn = functools.partial(_write_block, offset=_block_start(mesh, cpl, 1, c.shape[1]),
+                               total=c.shape[1])
+    return local_map(fn, out_placements=list(cpl), in_placements=(cpl, upl, spl),
+                     device_mesh=mesh, redistribute_inputs=True)(c, u, start)
+
+
+def _block_start(mesh, placements: tuple, dim: int, size: int) -> int:
+    """The first index along ``dim`` (of ``size``) of this rank's block of
+    a DTensor in ``placements``: DTensor splits a dimension sharded on
+    several mesh axes in mesh-axis order (``train.sharding.local_shard``)."""
+    coord = mesh.get_coordinate()
+    first = 0
+    for i, pl in enumerate(placements):
+        if pl.is_shard(dim):
+            size //= mesh.shape[i]
+            first += coord[i] * size
+    return first
+
+
+def _write_block(c: torch.Tensor, u: torch.Tensor, start: torch.Tensor, offset: int,
+                 total: int) -> torch.Tensor:
+    """:func:`write_rows` into one rank's block ``c`` (B, Tb, Hk, Dh) of a
+    cache view split on its sequence, the block holding positions
+    ``[offset, offset + Tb)`` of ``total``: ``start`` clamped on the whole
+    sequence, and only the rows of ``u`` (B, S, Hk, Dh) in the block
+    written (the others land on :func:`_flat_write`'s dump row)."""
+    b, s, tb = u.shape[0], u.shape[1], c.shape[1]
+    start = start.to(device=c.device, dtype=torch.long).clamp(0, total - s)
+    rows = start[:, None] + torch.arange(s, device=c.device) - offset
+    slot = torch.arange(b, device=c.device)[:, None]
+    widx = torch.where((rows >= 0) & (rows < tb), slot * tb + rows, b * tb)
+    return _flat_write(c, u.reshape((b * s,) + tuple(u.shape[2:])), widx.reshape(-1))
 
 
 def _windowed(cfg, valid: torch.Tensor, kpos: torch.Tensor, qpos: torch.Tensor,
@@ -488,43 +522,60 @@ def context(cfg, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _context(cfg, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             mask: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor:
+             mask: torch.Tensor | None, dtype: torch.dtype, groups: tuple = ()) -> torch.Tensor:
     """The attention context (B, S, Hk, G, Dh) of q (B, S, H, Dh) against
-    k, v (B, T, Hk, Dh) under ``mask``."""
+    k, v (B, T, Hk, Dh) under ``mask``; with ``groups``, k, v and the mask
+    are this rank's block of keys split on their sequence over those
+    process groups (:func:`attend_split`)."""
     b, s, h, dh = q.shape
     hk = k.shape[2]
     qg = q.reshape(b, s, hk, h // hk, dh)
     k64, v64 = k.to(torch.float64), v.to(torch.float64)
+
+    def core(qb, mb):
+        if groups:
+            return attend_split(cfg, qb, k64, v64, mb, dtype, groups)
+        return attend_core(cfg, qb, k64, v64, mb, dtype)
+
     # Long sequences: one query block at a time, each against its full key
     # row (exact), so the (Sq, T) score tile stays bounded.
     if s > Q_CHUNK and s % Q_CHUNK == 0 and mask is not None:
-        return torch.cat([attend_core(cfg, qg[:, i:i + Q_CHUNK], k64, v64,
-                                      mask[..., i:i + Q_CHUNK, :], dtype)
+        return torch.cat([core(qg[:, i:i + Q_CHUNK], mask[..., i:i + Q_CHUNK, :])
                           for i in range(0, s, Q_CHUNK)], dim=1)
-    return attend_core(cfg, qg, k64, v64, mask, dtype)
+    return core(qg, mask)
 
 
 def _context_mesh(cfg, q, k, v, mask, dtype):
     """:func:`_context` of DTensors, per rank on its own block
-    (``local_map``): batch rows split over the data axes, heads over
-    'model' where the KV heads divide (a query head's group stays with its
-    KV head), else queries split on their sequence axis against whole keys;
-    the context comes back (B, S, H, Dh) in those placements.  Each query
-    row's sums are the unsharded call's, and DTensor's einsum strategies
-    are not needed (some versions refuse a head-sharded score einsum)."""
+    (``local_map``): batch rows split over the data axes; on an axis that
+    splits the keys' sequence (a cache split on it, the queries not) each
+    rank attends over its own block of positions and the partial softmax
+    is combined across the axis (:func:`attend_split`, the split-KV
+    scheme); heads over 'model' where the KV heads divide (a query head's
+    group stays with its KV head); else queries split on their sequence
+    axis against whole keys.  The context comes back (B, S, H, Dh) in
+    those placements.  DTensor's einsum strategies are not needed (some
+    versions refuse a head-sharded score einsum)."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = q.device_mesh
-    b, s = q.shape[0], q.shape[1]
-    qpl, kpl, mpl = [], [], []
+    b, s, t = q.shape[0], q.shape[1], k.shape[1]
+    qpl, kpl, mpl, split_kv = [], [], [], []
     if mask is not None and not is_dtensor(mask):
         mask = DTensor.from_local(mask, mesh, (Replicate(),) * mesh.ndim, run_check=False)
     for i, pl in enumerate(q.placements):
+        kp = k.placements[i] if is_dtensor(k) else Replicate()
         if pl == Shard(0):
             qpl.append(Shard(0))
             kpl.append(Shard(0))
             mpl.append(Shard(0) if mask is not None and mask.shape[0] == b else Replicate())
+        elif kp == Shard(1) and pl != Shard(1):
+            split_kv.append(i)
+            qpl.append(Replicate())
+            kpl.append(Shard(1))
+            mpl.append(Shard(mask.ndim - 1) if mask is not None and mask.shape[-1] == t
+                       else Replicate())
         elif pl == Shard(2) and k.shape[2] % mesh.shape[i] == 0:
             qpl.append(Shard(2))
             kpl.append(Shard(2))
@@ -538,9 +589,10 @@ def _context_mesh(cfg, q, k, v, mask, dtype):
             qpl.append(Replicate())
             kpl.append(Replicate())
             mpl.append(Replicate())
+    groups = tuple(mesh.get_group(i) for i in split_kv)
 
     def local(ql, kl, vl, ml):
-        return _context(cfg, ql, kl, vl, ml, dtype).reshape(ql.shape)
+        return _context(cfg, ql, kl, vl, ml, dtype, groups).reshape(ql.shape)
 
     fn = local_map(local, out_placements=list(qpl),
                    in_placements=(tuple(qpl), tuple(kpl), tuple(kpl),
@@ -549,20 +601,48 @@ def _context_mesh(cfg, q, k, v, mask, dtype):
     return fn(q, k, v, mask)
 
 
+def _scores(cfg, qg: torch.Tensor, k: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """Float64 scores (B, Hk, G, Sq, T) of qg against k: scaled, softcapped
+    and masked (a masked score is float64's lowest)."""
+    scores = torch.einsum("bshgd,bthd->bhgst", qg.to(torch.float64),
+                          k.to(torch.float64)) / math.sqrt(qg.shape[-1])
+    scores = softcap(scores, cfg.attn_softcap)
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
+    return scores
+
+
 def attend_core(cfg, qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 mask: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor:
     """Scores, softcap, mask, softmax and the weighted sum of one query
     block qg (B, Sq, Hk, G, Dh) against k, v (B, T, Hk, Dh), in float64;
     the context (B, Sq, Hk, G, Dh) is rounded once to ``dtype`` (see
     :func:`attention` for why)."""
-    dh = qg.shape[-1]
-    scores = torch.einsum("bshgd,bthd->bhgst", qg.to(torch.float64),
-                          k.to(torch.float64)) / math.sqrt(dh)
-    scores = softcap(scores, cfg.attn_softcap)
-    if mask is not None:
-        scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
-    probs = torch.softmax(scores, dim=-1)
+    probs = torch.softmax(_scores(cfg, qg, k, mask), dim=-1)
     return torch.einsum("bhgst,bthd->bshgd", probs, v.to(torch.float64)).to(dtype)
+
+
+def attend_split(cfg, qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 mask: torch.Tensor | None, dtype: torch.dtype, groups: tuple) -> torch.Tensor:
+    """:func:`attend_core` with the keys split on their sequence over the
+    ranks of ``groups`` (flash-decoding's split-KV): k, v and the mask are
+    this rank's block of positions.  The scores' row max is all-reduced
+    (MAX), each rank sums ``exp(s - max)`` and its weighted values over its
+    block in float64, the two sums are all-reduced (SUM) and their ratio is
+    rounded once to ``dtype``.  A block whose positions are all masked
+    gives exactly zero weight; a row masked everywhere is uniform over
+    every position, as the unsharded softmax makes it."""
+    scores = _scores(cfg, qg, k, mask)
+    top = torch.amax(scores, dim=-1, keepdim=True)
+    for group in groups:
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    e = torch.exp(scores - top)
+    den = torch.sum(e, dim=-1, keepdim=True)                   # (B,Hk,G,Sq,1)
+    num = torch.einsum("bhgst,bthd->bhgsd", e, v.to(torch.float64))
+    for group in groups:
+        dist.all_reduce(den, group=group)
+        dist.all_reduce(num, group=group)
+    return (num / den).permute(0, 3, 1, 2, 4).to(dtype)
 
 
 # ---------------------------------------------------------------------------

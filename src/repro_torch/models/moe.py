@@ -40,6 +40,14 @@ experts at inference run the reference's expert-parallel branch: each rank
 decodes its own experts' planes and runs their three products on its
 (data, model) block of the dispatched tokens (``local_map``, the
 counterpart of the reference's ``shard_map``); ``EP_CALLS`` counts them.
+
+In the sharded train step (a ``train.fsdp.Split`` whose expert stacks stay
+split over 'model') each rank holds E / msz experts and its own rows: the
+dispatched tokens go to the experts' ranks by an all-to-all over the
+'model' group and come back by another (the reference's "dispatch =
+all-to-all", there chosen by XLA from the pinned layouts), and the
+combine runs locally (:func:`_expert_ffn_exchanged`).  A row's expert sums
+are those of one process: regrouping rows moves no sum.
 """
 from __future__ import annotations
 
@@ -53,8 +61,9 @@ from repro_torch.models import layers
 from repro_torch.utils import act_sharding
 from repro_torch.utils.act_sharding import constrain
 
-# Calls of the expert-parallel branch of :func:`_expert_ffn`.
-EP_CALLS = {"expert_parallel": 0}
+# Calls of the expert-parallel branch of :func:`_expert_ffn`, and the
+# training forward's token all-to-alls (:func:`_expert_ffn_exchanged`).
+EP_CALLS = {"expert_parallel": 0, "all_to_all": 0}
 
 # Dispatch-group size: a call row longer than this (and a multiple of it) is
 # regrouped into rows of this many tokens, so the (rows, G, E, C) dispatch
@@ -193,6 +202,24 @@ def _expert_ffn_local(p: dict, xe, mesh):
                     for leaf in ("sign", "zero", "scale")))
 
 
+def _expert_ffn_exchanged(p: dict, xe: torch.Tensor, train: bool, split) -> torch.Tensor:
+    """:func:`_expert_math` of this rank's dispatched tokens xe (B, E, C, D)
+    on the experts of every 'model' rank of ``split``, this rank holding
+    E / msz of them: expert block j of xe goes to rank j, which runs its
+    experts on (msz * B, E / msz, C, D) rows, and the outputs come back
+    (two all-to-alls, differentiable through ``split.exchange``)."""
+    n = split.ep_size
+    b, e, c, d = xe.shape
+    el = next(iter(p["w_gate"].values())).shape[-3]
+    if el * n != e:
+        raise ValueError(f"{e} experts do not split as {el} per rank over {n} 'model' ranks")
+    EP_CALLS["all_to_all"] += 2
+    rows = split.exchange(xe.reshape(b, n, el, c, d).transpose(0, 1))   # (msz, B, El, C, D)
+    out = _expert_math(p, rows.reshape(n * b, el, c, d), train)
+    back = split.exchange(out.reshape(n, b, el, c, d))
+    return back.transpose(0, 1).reshape(b, e, c, d)
+
+
 def _top_k(gates: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The k largest gates and their indices, ties ordered toward the lower
     index as ``jax.lax.top_k`` orders them (``torch.topk`` promises no
@@ -252,15 +279,19 @@ def moe_forward(cfg, p: dict, x: torch.Tensor, train: bool = True,
                 split=None) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (y (B, S, D), the Switch load-balancing aux loss, a
     float32 scalar).  With a ``split`` (``train.fsdp.Split``) x is this
-    rank's rows of the batch, and the aux loss takes its statistics over
-    the whole batch."""
+    rank's rows of the batch, the aux loss takes its statistics over the
+    whole batch, and where the split keeps the routed experts on their
+    'model' ranks the tokens go to them (:func:`_expert_ffn_exchanged`)."""
     b0, s0, d = x.shape
     if s0 > MAX_GROUP and s0 % MAX_GROUP == 0:
         x = x.reshape(b0 * (s0 // MAX_GROUP), MAX_GROUP, d)
     r = _route(cfg, p, x, split)
     xe = _bf16_einsum("bsec,bsd->becd", r["dispatch"], x.to(torch.bfloat16))  # (B,E,C,D)
     xe = constrain(xe, "moe")        # expert axis on 'model': the dispatch is an all-to-all
-    out_e = constrain(_expert_ffn(p, xe, train), "moe")
+    if split is not None and split.ep_size > 1:
+        out_e = _expert_ffn_exchanged(p, xe, train, split)
+    else:
+        out_e = constrain(_expert_ffn(p, xe, train), "moe")
     # On a mesh the expert axis is gathered before the combine: summed as
     # per-rank partials, the combine's float32 sum over the experts would
     # take another order and move bf16 roundings.

@@ -63,6 +63,19 @@ _REPL = {"router", "frontend_proj", "conv_w", "conv_b", "A_log", "D",
          "dt_bias", "qn", "kn", "g"}
 
 
+def is_expert_path(names: tuple) -> bool:
+    """Whether the tree path ``names`` is that of a routed-expert stack's
+    leaf (``moe`` / ``w_gate|w_up|w_down``, not the shared experts)."""
+    return (len(names) >= 2 and names[-2] in ("w_gate", "w_up", "w_down")
+            and "moe" in names and "shared" not in names)
+
+
+def is_expert_stack(names: tuple, ndim: int) -> bool:
+    """Whether the param leaf at tree path ``names`` (of ``ndim``
+    dimensions) is a routed-expert stack (..., E, K, M)."""
+    return ndim >= 3 and is_expert_path(names)
+
+
 def param_spec(path: tuple, leaf, fsdp: bool = False) -> tuple:
     """Spec for one param leaf given its tree path (tuple of str).
 
@@ -89,9 +102,7 @@ def param_spec(path: tuple, leaf, fsdp: bool = False) -> tuple:
         return spec(*out)
 
     # Expert stacks: (..., E, K, M): the *expert* axis is the EP axis.
-    is_expert = (parent in ("w_gate", "w_up", "w_down") and ndim >= 3
-                 and "moe" in names and "shared" not in names)
-    if is_expert:
+    if is_expert_stack(names, ndim):
         out[-3] = "model"
         if fsdp:
             out[-2] = "__data__"

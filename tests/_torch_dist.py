@@ -89,10 +89,10 @@ def _entry(fn, rank: int, n: int, root: str, args: tuple) -> None:
 # Shared inputs
 # ---------------------------------------------------------------------------
 
-def reduced(arch: str):
+def reduced(arch: str, **overrides):
     import repro_torch.configs as configs
 
-    return configs.get(arch).reduced()
+    return configs.get(arch).reduced(**overrides)
 
 
 def port_params(arch: str) -> dict:
@@ -209,16 +209,31 @@ def jit_step_rank(rank: int, n: int, archs: tuple, cases: tuple, params: dict,
     (:func:`placement_shards`), and per (arch, fsdp) case: one
     ``jit_train_step`` step on the (2, 2) mesh from the given params, its
     loss, the averaged gradients, whether the state came back in its input
-    placements, and the one-process step's loss and gradients.  The bitnet
-    fsdp state after its step is saved to ``ckpt_dir``."""
+    placements, and the one-process step's loss and gradients; the
+    gradients' all-to-alls of the MoE layers, the all-gathers of a 3-D leaf
+    (a layer's expert stack) along its first dimension over 'model', and
+    the relative L2 distance of this rank's shard of each routed-expert
+    gradient from its slice of the one-process gradient.  The bitnet fsdp
+    state after its step is saved to ``ckpt_dir``."""
     from repro_torch import checkpoint as ckpt
+    from repro_torch.models import moe
     from repro_torch.optim import OptConfig, adamw_init
-    from repro_torch.train import TrainState, jit_train_step, loss_and_grads
+    from repro_torch.train import TrainState, fsdp as fsdp_lib, jit_train_step, loss_and_grads
+    from repro_torch.train import sharding
     from repro_torch.train.train_loop import sharded_loss_and_grads
 
     dm = mesh22(n)
     out = {"shards": placement_shards(rank, n, archs)}
     opt_cfg = OptConfig(lr=1e-3, warmup_steps=1)
+    model_group = dm.get_group("model")
+    gather_dim = fsdp_lib._gather_dim
+    expert_gathers = []
+
+    def watched(t, dim, size, group):
+        if t.ndim == 3 and dim == 0 and group is model_group:
+            expert_gathers.append(tuple(t.shape))
+        return gather_dim(t, dim, size, group)
+
     for arch, fsdp in cases:
         cfg = reduced(arch)
         p = unflat(params[arch])
@@ -226,20 +241,41 @@ def jit_step_rank(rank: int, n: int, archs: tuple, cases: tuple, params: dict,
         step = jit_train_step(cfg, opt_cfg, dm, state, batch[arch], fsdp=fsdp)
         placed = step.place(state)
         before = _placements(placed)
-        loss_s, _, grads_s = sharded_loss_and_grads(cfg, dm, placed, batch[arch],
-                                                    step.batch_specs)
+        moe.EP_CALLS["all_to_all"] = 0
+        expert_gathers.clear()
+        fsdp_lib._gather_dim = watched
+        try:
+            loss_s, _, grads_s = sharded_loss_and_grads(cfg, dm, placed, batch[arch],
+                                                        step.batch_specs)
+        finally:
+            fsdp_lib._gather_dim = gather_dim
+        a2a, gathers = moe.EP_CALLS["all_to_all"], list(expert_gathers)
         new, metrics = step(placed, batch[arch])
         res = {"loss": float(metrics["loss"]), "sharded_grads_loss": float(loss_s),
-               "grads": flat(grads_s), "same_placements": _placements(new) == before}
-        if rank == 0:
+               "grads": flat(grads_s), "same_placements": _placements(new) == before,
+               "all_to_all": a2a, "expert_gathers_over_model": gathers}
+        if rank == 0 or cfg.is_moe:
             loss1, _, grads1 = loss_and_grads(cfg, unflat(params[arch]), batch[arch])
             res.update(loss_one=float(loss1), grads_one=flat(grads1))
+        if cfg.is_moe:
+            res["expert_shard_rel"] = {
+                key: _rel_l2(g.to_local(), sharding.local_shard(
+                    torch.from_numpy(res["grads_one"][key]), dm, g.placements))
+                for key, g in _flat_tensors(grads_s).items()
+                if sharding.is_expert_stack(tuple(key.split("/")), g.ndim)}
+        if rank != 0:
+            res.pop("grads_one", None)
         out[arch, fsdp] = res
         if arch == "bitnet-2b-4t" and fsdp:
             ckpt.save(ckpt_dir, 1, new)
             out["saved"] = flat(new.params)
     out["liveness"] = gathered_liveness(dm)
     return out
+
+
+def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.clamp(torch.linalg.vector_norm(want), min=1e-30))
 
 
 def gathered_liveness(dm) -> dict:
@@ -266,8 +302,8 @@ def gathered_liveness(dm) -> dict:
     peak = [0]
     real = fsdp.Split.all_gather
 
-    def counted(self, local, placements):
-        out = real(self, local, placements)
+    def counted(self, local, placements, keep=()):
+        out = real(self, local, placements, keep)
         if out.untyped_storage().data_ptr() != local.untyped_storage().data_ptr():
             alive.append((weakref.ref(out), out.numel()))
             peak[0] = max(peak[0], sum(n for r, n in alive if r() is not None))
@@ -322,20 +358,23 @@ def train_cli_rank(rank: int, n: int, argv: list) -> int:
     return train_main.main(argv)
 
 
-def serving_rank(rank: int, n: int, arch: str, prompt_len: int, steps: int) -> dict:
+def serving_rank(rank: int, n: int, arch: str, prompt_len: int, steps: int,
+                 overrides: dict | None = None) -> dict:
     """Prefill and ``steps`` greedy decode steps of the frozen reduced
-    ``arch`` through ``dryrun.mesh_cells`` on the (2, 2) mesh, beside the
-    unsharded ``prefill`` / ``decode_step`` on the same params; the (N, K,
-    M) of every call of ``tsar_matmul``'s wrapper on the mesh path (on the
-    CPU it takes the plain version, and ``LAUNCHES`` counts only kernel
-    launches) and the expert-parallel calls."""
+    ``arch`` (with config ``overrides``) through ``dryrun.mesh_cells`` on
+    the (2, 2) mesh, beside the unsharded ``prefill`` / ``decode_step`` on
+    the same params; the (N, K, M) of every call of ``tsar_matmul``'s
+    wrapper on the mesh path (on the CPU it takes the plain version, and
+    ``LAUNCHES`` counts only kernel launches) and the expert-parallel
+    calls."""
     from repro_torch.kernels import tsar_matmul
     from repro_torch.launch import dryrun
-    from repro_torch.models import model_zoo, moe
+    from repro_torch.models import layers, model_zoo, moe
     from repro_torch.serving.engine import freeze_params
 
-    cfg = reduced(arch)
-    params = freeze_params(port_params(arch), sparse=False)
+    cfg = reduced(arch, **(overrides or {}))
+    params = freeze_params(model_zoo.init_params(cfg, torch.Generator().manual_seed(0), "cpu"),
+                           sparse=False)
     b, max_len = 2, prompt_len + steps + 1
     rng = np.random.default_rng(3)
     batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, prompt_len))).long()}
@@ -369,14 +408,53 @@ def serving_rank(rank: int, n: int, arch: str, prompt_len: int, steps: int) -> d
             return fn(*a)
         return run
 
-    tsar_matmul.tsar_matmul_packed = recorded
+    split_calls = [0]
+    attend_split = layers.attend_split
+
+    def counted_split(*a, **kw):
+        split_calls[0] += 1
+        return attend_split(*a, **kw)
+
+    tsar_matmul.tsar_matmul_packed, layers.attend_split = recorded, counted_split
     try:
         mesh = greedy(step(cells.prefill), step(cells.decode_step), cells.place_cache(
             model_zoo.init_cache(cfg, b, max_len, torch.float32, "cpu")))
     finally:
-        tsar_matmul.tsar_matmul_packed = wrapper
+        tsar_matmul.tsar_matmul_packed, layers.attend_split = wrapper, attend_split
     return {"plain": [t.numpy() for t in plain], "mesh": [t.numpy() for t in mesh],
-            "calls": calls, "ep_calls": moe.EP_CALLS["expert_parallel"]}
+            "calls": calls, "ep_calls": moe.EP_CALLS["expert_parallel"],
+            "split_kv_calls": split_calls[0]}
+
+
+def split_attention_rank(rank: int, n: int) -> dict:
+    """``layers.attend_split`` over this rank's block of 12 key positions
+    (float64 and float32 contexts, softcap on), and ``attend_core`` over all
+    of them on the same numpy-seeded inputs: query rows 0-3 see every
+    position, rows 4-5 only the first block (the others' blocks wholly
+    masked), row 6 none (masked everywhere)."""
+    import dataclasses
+    import torch.distributed as dist
+
+    from repro_torch.models import layers
+
+    cfg = dataclasses.replace(reduced("bitnet-2b-4t"), attn_softcap=30.0)
+    rng = np.random.default_rng(5)
+    b, s, hk, g, dh, t = 2, 7, 2, 2, 8, 12
+    qg = torch.from_numpy(rng.standard_normal((b, s, hk, g, dh)))
+    k = torch.from_numpy(rng.standard_normal((b, t, hk, dh)))
+    v = torch.from_numpy(rng.standard_normal((b, t, hk, dh)))
+    mask = torch.ones((1, 1, 1, s, t), dtype=torch.bool)
+    mask[..., 4:6, t // n:] = False
+    mask[..., 6, :] = False
+    tb = t // n
+    blk = slice(rank * tb, (rank + 1) * tb)
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        out[str(dtype)] = {
+            "split": layers.attend_split(cfg, qg, k[:, blk], v[:, blk], mask[..., blk], dtype,
+                                         (dist.group.WORLD,)).numpy(),
+            "whole": layers.attend_core(cfg, qg, k, v, mask, dtype).numpy()}
+    return out
 
 
 def train_mesh_rank(rank: int, n: int, argv: list) -> dict:
@@ -421,13 +499,18 @@ def _materialized(tree, vocab: int, rng: np.random.Generator):
 
 
 # The dry-run cells held against real ranks on (2, 2): name -> (arch,
-# (shape fields), kwargs of ``dryrun.lower_cell``), reduced configs.
+# (shape fields), kwargs of ``dryrun.lower_cell``, overrides of the reduced
+# config).  ``moe_train_fsdp`` keeps its experts split on 'model' (4 experts
+# over 2 ranks: tokens by all-to-all); ``splitkv_decode`` has one KV head,
+# so its cache splits on its sequence over 'model'.
 DRYRUN_CELLS = {
-    "bitnet_decode": ("bitnet-2b-4t", ("d", 32, 4, "decode"), {}),
-    "bitnet_prefill": ("bitnet-2b-4t", ("p", 32, 4, "prefill"), {}),
-    "moe_decode": ("deepseek-moe-16b", ("d", 32, 4, "decode"), {}),
-    "bitnet_train": ("bitnet-2b-4t", ("t", 32, 4, "train"), {"fsdp": False}),
-    "bitnet_train_fsdp": ("bitnet-2b-4t", ("t", 32, 4, "train"), {"fsdp": True}),
+    "bitnet_decode": ("bitnet-2b-4t", ("d", 32, 4, "decode"), {}, {}),
+    "bitnet_prefill": ("bitnet-2b-4t", ("p", 32, 4, "prefill"), {}, {}),
+    "moe_decode": ("deepseek-moe-16b", ("d", 32, 4, "decode"), {}, {}),
+    "bitnet_train": ("bitnet-2b-4t", ("t", 32, 4, "train"), {"fsdp": False}, {}),
+    "bitnet_train_fsdp": ("bitnet-2b-4t", ("t", 32, 4, "train"), {"fsdp": True}, {}),
+    "moe_train_fsdp": ("deepseek-moe-16b", ("t", 32, 4, "train"), {"fsdp": True}, {}),
+    "splitkv_decode": ("bitnet-2b-4t", ("d", 32, 4, "decode"), {}, {"n_kv_heads": 1}),
 }
 
 
@@ -439,10 +522,10 @@ def fake_world_counts(name: str, device_type: str = "cuda") -> dict:
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import fake_world, make_mesh
 
-    arch, fields, kw = DRYRUN_CELLS[name]
+    arch, fields, kw, overrides = DRYRUN_CELLS[name]
     mesh = make_mesh((2, 2), ("data", "model"))
     with fake_world(mesh, device_type) as dm:
-        lowered, _ = dryrun.lower_cell(configs.get(arch).reduced(),
+        lowered, _ = dryrun.lower_cell(reduced(arch, **overrides),
                                        configs.ShapeConfig(*fields), mesh, device_mesh=dm, **kw)
         m = dryrun.measure(lowered, mesh)
     return {"flops": m["counts"]["flops"], "kernel_ops": m["counts"]["kernel_ops"],
@@ -480,8 +563,8 @@ def dryrun_counts_rank(rank: int, n: int, cells: dict) -> dict:
     out = {}
     tsar_matmul.tsar_matmul_packed = paused
     try:
-        for name, (arch, fields, kw) in cells.items():
-            cfg, shape = reduced(arch), configs.ShapeConfig(*fields)
+        for name, (arch, fields, kw, overrides) in cells.items():
+            cfg, shape = reduced(arch, **overrides), configs.ShapeConfig(*fields)
             rng = np.random.default_rng(0)
             gen = torch.Generator().manual_seed(0)
             inputs = _materialized(model_zoo.input_specs(cfg, shape), cfg.vocab_size, rng)

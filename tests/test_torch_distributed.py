@@ -24,7 +24,10 @@ from the same numpy-seeded params and batches.
   1e-4 plus the reference's own sharded-vs-unsharded gap (6.7e-4 measured:
   XLA's partitioned bf16 expert sums), printed beside it; the averaged
   gradients within 1e-3 relative L2 of the one-process step's (MoE 1e-2:
-  bf16 experts); the state back in its placements;
+  bf16 experts); the state back in its placements; the MoE step keeps its
+  routed experts split on 'model' (never all-gathered there), moves the
+  tokens by two all-to-alls per MoE layer forward, and each rank's shard of
+  an expert gradient is within 1e-2 of its slice of the one-process one;
 * checkpoints: saved from 4 ranks, restored onto 2 ranks and onto 1,
   equal leaf by leaf;
 * ``launch/train.py``: ``--compress-grads`` on 2 ranks completes and
@@ -204,6 +207,27 @@ def test_jit_train_step_matches_one_process_and_reference(ref, sharded_runs, arc
     for k, g in res["grads_one"].items():
         assert _rel(res["grads"][k], g) <= tol, k
     assert all(o[arch, fsdp]["same_placements"] for o in outs)
+
+
+@pytest.mark.parametrize("fsdp", [False, True])
+def test_sharded_moe_step_moves_tokens_not_experts(sharded_runs, fsdp):
+    """Reduced deepseek-moe-16b on (2, 2): 4 routed experts, 2 per 'model'
+    rank.  No rank all-gathers an expert stack over 'model'; each MoE
+    layer's forward runs two all-to-alls (tokens out to the experts' ranks
+    and back); every rank's shard of each routed-expert gradient is within
+    1e-2 relative L2 of its slice of the one-process gradient.  The dense
+    model runs no all-to-all."""
+    outs, _ = sharded_runs
+    cfg = reduced("deepseek-moe-16b")
+    for rank, o in enumerate(outs):
+        res = o["deepseek-moe-16b", fsdp]
+        assert res["expert_gathers_over_model"] == [], rank
+        assert res["all_to_all"] == 2 * cfg.n_layers, rank
+        assert sorted(res["expert_shard_rel"]) == [
+            f"blocks/moe/{w}/w" for w in ("w_down", "w_gate", "w_up")]
+        for key, rel in res["expert_shard_rel"].items():
+            assert rel <= 1e-2, (rank, key, rel)
+        assert o["bitnet-2b-4t", fsdp]["all_to_all"] == 0
 
 
 def test_fsdp_step_gathers_one_layer_at_a_time(sharded_runs):

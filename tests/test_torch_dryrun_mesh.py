@@ -4,15 +4,21 @@ world (``launch.mesh.fake_world``) on the meta device.
 * hand counts, exact: one packed projection on a (1, 2) mesh, row-parallel
   (the absmax MAX and the int32 partials SUM all-reduced) and
   column-parallel (no collective), and an FSDP-gathered leaf on (2, 1)
-  (all-gather of the whole, reduce-scatter of the gradient's shard);
+  (all-gather of the whole, reduce-scatter of the gradient's shard); an
+  all-to-all counts its output's bytes, forward and backward; bytes
+  accessed: one mm's inputs plus its output, nothing for a view or an
+  allocation, and a packed projection's kernel call its operands and
+  output;
 * the fake world against real ranks, exact: on (2, 2), reduced bitnet-2b-4t
-  decode and prefill, deepseek-moe-16b decode (the expert-parallel branch)
-  and the train cell with fsdp on and off; the dry-run's FLOPs, kernel
-  tally and collective bytes of each kind on a fake world of gloo's device
-  type equal the same counter around each rank of a real gloo run of the
-  same step (``tests/_torch_dist.py``); on the H100's device type the
-  counts are the same but that DTensor's re-sharding all-to-all replaces
-  gloo's all-gather and chunk;
+  decode and prefill, deepseek-moe-16b decode (the expert-parallel branch),
+  the train cell with fsdp on and off, deepseek-moe-16b's fsdp train cell
+  (experts kept on 'model', tokens by all-to-all) and a one-KV-head bitnet
+  decode (the cache split on its sequence: split-KV); the dry-run's FLOPs,
+  kernel tally and collective bytes of each kind on a fake world of gloo's
+  device type equal the same counter around each rank of a real gloo run
+  of the same step (``tests/_torch_dist.py``); on the H100's device type
+  the counts are the same but that DTensor's re-sharding all-to-all
+  replaces gloo's all-gather and chunk;
 * the same cell traced twice in one process, another between, gives equal
   records; the fake group is gone after ``run_cell``, a real one is never
   replaced, and a failure is a record with ``status: "error"``;
@@ -31,7 +37,7 @@ import sys
 import pytest
 import torch
 import torch.distributed as dist
-from _torch_dist import DRYRUN_CELLS, dryrun_counts_rank, fake_world_counts, run_ranks
+from _torch_dist import DRYRUN_CELLS, dryrun_counts_rank, fake_world_counts, reduced, run_ranks
 from _torch_serving import one_torch_thread  # noqa: F401
 
 import repro_torch.configs as configs
@@ -74,7 +80,8 @@ def test_row_parallel_projection_hand_count():
     n, k, m = 4, 256, 96
     coll, calls, y = _projection("wo", n, k, m)
     assert coll == {"all-reduce": 4 * n + 4 * n * m}
-    assert calls == [tally.KernelCall("tsar_matmul", n, k // 2, m, 2 * n * (k // 2) * m)]
+    kb = n * k // 2 + 4 * n + 2 * (k // 16) * m + 4 * m + 4 * n * m
+    assert calls == [tally.KernelCall("tsar_matmul", n, k // 2, m, 2 * n * (k // 2) * m, kb)]
     assert tuple(y.shape) == (n, m)
 
 
@@ -83,7 +90,8 @@ def test_column_parallel_projection_hand_count():
     n, k, m = 4, 256, 96
     coll, calls, y = _projection("wq", n, k, m)
     assert coll == {}
-    assert calls == [tally.KernelCall("tsar_matmul", n, k, m // 2, 2 * n * k * (m // 2))]
+    kb = n * k + 4 * n + 2 * (k // 8) * (m // 2) + 4 * (m // 2) + 4 * n * (m // 2)
+    assert calls == [tally.KernelCall("tsar_matmul", n, k, m // 2, 2 * n * k * (m // 2), kb)]
     assert tuple(y.shape) == (n, m)
 
 
@@ -104,6 +112,43 @@ def test_fsdp_leaf_hand_count():
             whole.sum().backward()
     assert tuple(whole.shape) == (k, m) and tuple(local.grad.shape) == (k // 2, m)
     assert trace.collectives == {"all-gather": 4 * k * m, "reduce-scatter": 4 * k * m // 2}
+
+
+def test_all_to_all_hand_count():
+    """``Split.exchange`` (the MoE dispatch of the sharded train step) on
+    (1, 2): an all-to-all of the output's bytes, and another in the
+    backward."""
+    mesh = make_mesh((1, 2), ("data", "model"))
+    with fake_world(mesh) as dm:
+        split = Split(dm, {"moe": {"w_gate": {"w": tuple(sharding.placements(
+            dm, ("model", None, None), 3))}}})
+        x = torch.empty((2, 3, 5, 8), device="meta", requires_grad=True)
+        trace = dryrun.MetaTrace(set())
+        with trace:
+            y = split.exchange(x)
+            assert trace.collectives == {"all-to-all": 4 * 2 * 3 * 5 * 8}
+            y.sum().backward()
+    assert split.ep_size == 2 and tuple(y.shape) == (2, 3, 5, 8)
+    assert trace.collectives == {"all-to-all": 2 * 4 * 2 * 3 * 5 * 8}
+
+
+def test_bytes_accessed_hand_count():
+    """Each local op's tensor inputs plus its outputs: an mm, nothing for a
+    view or an allocation; a packed projection's kernel call adds its
+    operands and output to the tally (the bytes ``chip_smoke.py``'s bound
+    moves), and ``measure`` sums both."""
+    a, b = torch.empty((4, 8), device="meta"), torch.empty((8, 3), device="meta")
+    trace = dryrun.MetaTrace(set())
+    with trace:
+        c = a @ b
+        c.t()
+        c.view(3, 4)
+        torch.empty((100,), device="meta")
+    assert trace.bytes_accessed == 4 * (4 * 8 + 8 * 3 + 4 * 3)
+    n, k, m = 4, 256, 96
+    _, calls, _ = _projection("wq", n, k, m)
+    assert calls[0].nbytes == n * k + 4 * n + 2 * (k // 8) * (m // 2) + 4 * (m // 2) \
+        + 4 * n * (m // 2)
 
 
 def test_unknown_collective_raises():
@@ -142,11 +187,13 @@ def test_fake_world_equals_real_ranks(one_torch_thread, real_ranks, name):  # no
     assert all(r[name]["collectives"] == real["collectives"] for r in real_ranks)
     assert got["flops"] > 0 and got["collectives"]
     assert ep_calls == (2 if name == "moe_decode" else 0)      # 2 MoE layers, one call each
+    # The sharded MoE train step moves tokens, never the expert stacks.
+    assert ("all-to-all" in got["collectives"]) == (name == "moe_train_fsdp")
     if "train" in name:
         assert got["collectives"]["all-gather"] > 0 and got["collectives"]["reduce-scatter"] > 0
     else:
-        cfg = configs.get(DRYRUN_CELLS[name][0]).reduced()
-        assert got["kernels"]["tsar_matmul"] == 7 * cfg.n_layers
+        arch, _, _, overrides = DRYRUN_CELLS[name]
+        assert got["kernels"]["tsar_matmul"] == 7 * reduced(arch, **overrides).n_layers
 
 
 @pytest.mark.parametrize("name", sorted(DRYRUN_CELLS))
@@ -158,8 +205,10 @@ def test_device_types_differ_in_the_all_to_all_only(one_torch_thread, name):  # 
     'model' axis of 2) and a chunk."""
     cuda, cpu = fake_world_counts(name, "cuda"), fake_world_counts(name, "cpu")
     cc, gc = dict(cuda.pop("collectives")), dict(cpu.pop("collectives"))
-    assert cuda == cpu and "all-to-all" not in gc
-    a2a = cc.pop("all-to-all", 0.0)
+    # The MoE train step's own dispatch is an all-to-all on both.
+    dispatch = gc.pop("all-to-all", 0.0)
+    assert cuda == cpu and (dispatch > 0) == (name == "moe_train_fsdp")
+    a2a = cc.pop("all-to-all", 0.0) - dispatch
     assert gc.pop("all-gather", 0.0) == cc.pop("all-gather", 0.0) + 2 * a2a
     assert gc == cc
     assert (a2a > 0) == ("train" not in name)     # the vocab-sharded embedding's gather
@@ -170,8 +219,8 @@ def test_device_types_differ_in_the_all_to_all_only(one_torch_thread, name):  # 
 # ---------------------------------------------------------------------------
 
 def _cell(name: str, mesh=MESH22) -> dict:
-    arch, fields, kw = DRYRUN_CELLS[name]
-    rec = dryrun.run_cell(configs.get(arch).reduced(), configs.ShapeConfig(*fields), mesh,
+    arch, fields, kw, overrides = DRYRUN_CELLS[name]
+    rec = dryrun.run_cell(reduced(arch, **overrides), configs.ShapeConfig(*fields), mesh,
                           "2x2", verbose=False, **kw)
     assert rec["status"] == "ok", rec.get("error")
     return {k: v for k, v in rec.items() if k != "wall_s"}
@@ -197,7 +246,7 @@ def test_real_group_is_never_replaced(tmp_path):
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
                             world_size=1)
     try:
-        arch, fields, kw = DRYRUN_CELLS["bitnet_decode"]
+        arch, fields, _, _ = DRYRUN_CELLS["bitnet_decode"]
         cfg, shape = configs.get(arch).reduced(), configs.ShapeConfig(*fields)
         rec = dryrun.run_cell(cfg, shape, MESH22, "2x2", verbose=False)
         assert rec["status"] == "error" and "would replace it" in rec["error"]
@@ -217,7 +266,7 @@ def test_failure_is_an_error_record(monkeypatch):
         raise RuntimeError("sharded op failed")
 
     monkeypatch.setattr(dryrun, "measure", broken)
-    arch, fields, _ = DRYRUN_CELLS["bitnet_decode"]
+    arch, fields, _, _ = DRYRUN_CELLS["bitnet_decode"]
     rec = dryrun.run_cell(configs.get(arch).reduced(), configs.ShapeConfig(*fields), MESH22,
                           "2x2", verbose=False)
     assert rec["status"] == "error" and rec["error"] == "RuntimeError: sharded op failed"

@@ -216,11 +216,21 @@ def test_kernel_meta_branches(monkeypatch):
     out = tsar_lut.tsar_lut_gemv(f(4, 64, d=torch.float32), f(16, 40), f(16, 40),
                                  f(40, d=torch.float32))
     assert tuple(out.shape) == (4, 40)
+    # Bytes: every operand as the kernel is handed it (padded) and the
+    # output, e.g. tsar_matmul's int8 a_q N*Kp, f32 a_scale 4N, two planes
+    # Kp/8*Mp each, f32 w_scale 4Mp, f32 output 4*N*Mp.
     assert tally.TALLY == [
-        tally.KernelCall("tsar_matmul", 5, 208, 144, 2 * 5 * 208 * 144),
-        tally.KernelCall("tsar_sparse_padded", 3, 128, 96, 2 * 3 * 128 * 96),
-        tally.KernelCall("tsar_sparse", 3, 128, 48, 2 * 3 * 128 * 48),
-        tally.KernelCall("tsar_lut", 4, 64, 48, 2 * 4 * 64 * 48)]
+        tally.KernelCall("tsar_matmul", 5, 208, 144, 2 * 5 * 208 * 144,
+                         5 * 208 + 4 * 5 + 2 * 26 * 144 + 4 * 144 + 4 * 5 * 144),
+        tally.KernelCall("tsar_sparse_padded", 3, 128, 96, 2 * 3 * 128 * 96,
+                         3 * 128 + 4 * 3 + 2 * 6 * 8 * 48 + 2 * 4 * 2 * 4 + 4 * 2 + 4 * 96
+                         + 4 * 3 * 96),
+        tally.KernelCall("tsar_sparse", 3, 128, 48, 2 * 3 * 128 * 48,
+                         3 * 128 + 4 * 3 + 2 * 3 * 8 * 48 + 2 * 4 * 1 * 2 + 4 * 1 + 4 * 48
+                         + 4 * 3 * 48),
+        tally.KernelCall("tsar_lut", 4, 64, 48, 2 * 4 * 64 * 48,
+                         4 * 4 * 64 + 2 * 16 * 48 + 4 * 48 + 4 * 4 * 40)]
+    assert tally.nbytes() == sum(c.nbytes for c in tally.TALLY)
     assert tally.counts() == {"tsar_matmul": 1, "tsar_sparse_padded": 1, "tsar_sparse": 1,
                               "tsar_lut": 1}
     assert tally.ops() == sum(c.ops for c in tally.TALLY)
@@ -300,18 +310,21 @@ def _hlo(collectives: dict) -> str:
                       *lines, "  ROOT %r = f32[4]{0} copy(%p)", "}"])
 
 
-def _assert_analyze_equal(chips, flops, args, outs, collectives):
-    """The reference's ``analyze`` on its per-device cost and a partitioned
-    module with ``collectives``, against the port's on the same per-device
-    counts (its kernel ops split off) and collective bytes: equal FLOPs,
+def _assert_analyze_equal(chips, flops, args, outs, collectives, accessed=0.0):
+    """The reference's ``analyze`` on its per-device cost (``accessed``
+    bytes accessed where given) and a partitioned module with
+    ``collectives``, against the port's on the same per-device counts (its
+    kernel ops split off) and collective bytes: equal FLOPs,
     bytes, collectives by kind, useful ratio and peak; each term the
     reference's times the ratio of the two packages' constants (TPU v5e
     there, H100 here: ``ICI_LINK_BW / NVLINK_BW`` for the collective term);
     the bound the largest of the port's own terms."""
     mem = _MemStats(args, outs, 3e9)
-    want = jrl.analyze("a", "s", "single", chips, {"flops": flops}, _hlo(collectives), 6e14,
+    cost = {"flops": flops, **({"bytes accessed": accessed} if accessed else {})}
+    want = jrl.analyze("a", "s", "single", chips, cost, _hlo(collectives), 6e14,
                        memory_stats=mem)
-    counts = {"flops": 0.75 * flops, "kernel_ops": 0.25 * flops}
+    counts = {"flops": 0.75 * flops, "kernel_ops": 0.25 * flops,
+              **({"bytes accessed": accessed} if accessed else {})}
     got = roofline.analyze("a", "s", "single", chips, counts, 6e14,
                            memory_stats=dataclasses.asdict(mem), collectives=collectives)
     for key in ("flops_per_device", "bytes_per_device", "useful_flops_ratio",
@@ -323,7 +336,7 @@ def _assert_analyze_equal(chips, flops, args, outs, collectives):
                         ("collective_s", jrl.ICI_LINK_BW / roofline.NVLINK_BW)):
         assert getattr(got, term) == pytest.approx(getattr(want, term) * ratio, rel=1e-12), term
     assert got.compute_s == pytest.approx(got.flops_per_device / roofline.PEAK_FLOPS_BF16)
-    assert got.memory_s == pytest.approx((args + outs) / roofline.HBM_BW)
+    assert got.memory_s == pytest.approx(max(accessed, args + outs) / roofline.HBM_BW)
     terms = {"compute": got.compute_s, "memory": got.memory_s, "collective": got.collective_s}
     assert got.bound == max(terms, key=terms.get) and got.note == ""
     assert "| a " in roofline.format_table([got.to_json()])
@@ -331,13 +344,25 @@ def _assert_analyze_equal(chips, flops, args, outs, collectives):
 
 
 @pytest.mark.parametrize("chips", [1, 256])
-@pytest.mark.parametrize("flops,args,outs", [(1e12, 1e9, 1e8), (1e9, 5e10, 1e9),
-                                             (3e14, 2e11, 7e10), (0.0, 1e6, 0.0)])
-def test_analyze_equal_reference(chips, flops, args, outs):
+@pytest.mark.parametrize("flops,args,outs,accessed", [
+    pytest.param(1e12, 1e9, 1e8, 0.0, id="1000000000000.0-1000000000.0-100000000.0"),
+    pytest.param(1e9, 5e10, 1e9, 0.0, id="1000000000.0-50000000000.0-1000000000.0"),
+    pytest.param(3e14, 2e11, 7e10, 0.0, id="300000000000000.0-200000000000.0-70000000000.0"),
+    pytest.param(0.0, 1e6, 0.0, 0.0, id="0.0-1000000.0-0.0"),
+    # Bytes accessed above argument + output bytes: they set the memory term.
+    pytest.param(1e12, 1e9, 1e8, 4e12, id="accessed-memory-bound"),
+    pytest.param(3e14, 2e10, 7e9, 9e10, id="accessed-compute-bound"),
+    # Below them: the floor holds.
+    pytest.param(1e9, 5e10, 1e9, 2e10, id="accessed-below-floor"),
+])
+def test_analyze_equal_reference(chips, flops, args, outs, accessed):
     """Same per-device counts, no collectives: the reference's terms, bound
-    and ratios, and a collective term of 0."""
-    got = _assert_analyze_equal(chips, flops, args, outs, {})
+    and ratios, and a collective term of 0; the memory term and
+    ``bytes_per_device`` are ``max(bytes accessed, argument + output
+    bytes)``, the reference's on ``cost={"bytes accessed": ...}``."""
+    got = _assert_analyze_equal(chips, flops, args, outs, {}, accessed)
     assert got.collective_s == 0.0 and got.collectives == {}
+    assert got.bytes_per_device == max(accessed, args + outs)
 
 
 @pytest.mark.parametrize("chips", [4, 256])

@@ -1,6 +1,7 @@
 """Port vs reference: the small public names of the reference the port
-carries beside their counterparts (``core/ternary``, ``sparse/format``'s
-padded pool, ``serving/kv_cache``, ``models/transformer``), on the same
+carries beside their counterparts (``core/ternary``, ``kernels/tsar_matmul``,
+``sparse/format``'s padded pool, ``serving/kv_cache``,
+``models/transformer``), on the same
 numpy-seeded inputs."""
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +36,15 @@ def test_decompose_recompose_equal_reference(k, m):
     assert set(np.unique(w_d.numpy())) <= {-1.0, 1.0} and set(np.unique(w_s.numpy())) <= {0, 1}
     assert np.array_equal(ternary.recompose(w_d, w_s).numpy(), t)
     assert np.array_equal(np.asarray(jternary.recompose(jw_d, jw_s)), t)
+
+
+def test_tsar_matmul_pack_equal_reference():
+    """``kernels/tsar_matmul.PACK``, weights per plane byte."""
+    from repro.kernels import tsar_matmul as jtsar_matmul
+
+    from repro_torch.kernels import tsar_matmul
+
+    assert tsar_matmul.PACK == jtsar_matmul.PACK == ternary.PACK == 8
 
 
 def test_bytes_per_weight_equal_reference():

@@ -14,11 +14,25 @@ mamba2-780m, hymba-1.5b and whisper-tiny (zero-mean random frames): logits
 ``torch.equal`` and the same tokens, through the SSM mixer per rank on its
 batch rows, the cross-attention context per rank and the embedding rows per
 rank.
+
+The split-KV scheme (a cache split on its sequence over 'model', reduced
+bitnet-2b-4t with one KV head): decode logits and tokens ``torch.equal``
+to the unsharded cells', every decode layer through ``attend_split``,
+including a step where one rank's block holds no live position; on the
+fake world no all-gather of the step is as large as one layer's K block;
+``attend_split`` on 2 and 3 ranks against ``attend_core``, masked blocks
+and a row masked everywhere included.
 """
 import numpy as np
 import pytest
-from _torch_dist import reduced, run_ranks, serving_rank
+import torch
+from _torch_dist import (DRYRUN_CELLS, reduced, run_ranks, serving_rank,
+                         split_attention_rank)
 from _torch_serving import one_torch_thread  # noqa: F401
+
+import repro_torch.configs as configs
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import fake_world, make_mesh
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -76,3 +90,71 @@ def test_ssm_hybrid_encdec_cells_on_mesh_equal_unsharded(tmp_path, arch):
             np.testing.assert_array_equal(got, want, err_msg=f"rank {rank}")
         assert _tokens(res["mesh"]) == _tokens(res["plain"])
         assert all(len(c) >= 2 * cfg.n_layers for c in res["calls"])
+
+
+def test_split_kv_decode_on_mesh_equals_unsharded(tmp_path):
+    """One KV head does not divide 'model' (2), so the cache (max_len 10)
+    is split on its sequence: each rank writes only its block's rows and
+    attends over its block, the partial softmax combined by all-reduce.
+    The first decode step (position 4) leaves the second block with no
+    live position."""
+    prompt, steps = 4, 5
+    cfg = reduced("bitnet-2b-4t", n_kv_heads=1)
+    outs = run_ranks(serving_rank, 4, tmp_path, "bitnet-2b-4t", prompt, steps,
+                     {"n_kv_heads": 1})
+    for rank, res in enumerate(outs):
+        assert len(res["mesh"]) == steps + 1
+        for got, want in zip(res["mesh"], res["plain"]):
+            np.testing.assert_array_equal(got, want, err_msg=f"rank {rank}")
+        assert _tokens(res["mesh"]) == _tokens(res["plain"])
+        assert res["split_kv_calls"] == cfg.n_layers * steps
+        assert all(len(c) == 7 * cfg.n_layers for c in res["calls"])
+
+
+class _EachCollective(dryrun.MetaTrace):
+    """The dry-run's trace, keeping each collective's (kind, bytes)."""
+
+    def __init__(self):
+        super().__init__(set())
+        self.each = []
+
+    def _collective(self, func, args, out):
+        before = dict(self.collectives)
+        super()._collective(func, args, out)
+        self.each += [(k, v - before.get(k, 0)) for k, v in self.collectives.items()
+                      if v != before.get(k, 0)]
+
+
+def test_split_kv_decode_gathers_no_cache():
+    """Rank 0 of a fake (2, 2) world, the dry-run's split-KV decode cell
+    at 256 positions (so that a layer's cache outweighs the logits):
+    attention all-reduces its partials, and no all-gather moves as much as
+    one layer's K cache on a data slice (what the gathered layout moved
+    twice per layer and per K and V)."""
+    arch, fields, kw, overrides = DRYRUN_CELLS["splitkv_decode"]
+    cfg, shape = reduced(arch, **overrides), configs.ShapeConfig(fields[0], 256, *fields[2:])
+    mesh = make_mesh((2, 2), ("data", "model"))
+    with fake_world(mesh) as dm:
+        lowered, _ = dryrun.lower_cell(cfg, shape, mesh, device_mesh=dm, **kw)
+        trace = _EachCollective()
+        with trace:
+            lowered.run()
+    k_block = (shape.global_batch // 2) * shape.seq_len * cfg.n_kv_heads * cfg.head_dim * 2
+    gathers = [b for kind, b in trace.each if kind == "all-gather"]
+    assert gathers and max(gathers) < k_block, (gathers, k_block)
+    assert trace.collectives["all-reduce"] > 0
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_attend_split_equals_attend_core(tmp_path, n):
+    """Float64 contexts within 1e-12 of the unsharded core, float32 ones
+    equal; a wholly masked block weighs nothing and a row masked
+    everywhere is the unsharded call's (uniform), never NaN."""
+    outs = run_ranks(split_attention_rank, n, tmp_path)
+    for res in outs:
+        f64, f32 = res[str(torch.float64)], res[str(torch.float32)]
+        assert np.isfinite(f64["split"]).all()
+        np.testing.assert_allclose(f64["split"], f64["whole"], rtol=1e-12, atol=1e-12)
+        np.testing.assert_array_equal(f32["split"], f32["whole"])
+        np.testing.assert_array_equal(res[str(torch.float64)]["split"],
+                                      outs[0][str(torch.float64)]["split"])

@@ -10,21 +10,26 @@ no reference.
 * the serving cells (``launch.dryrun.mesh_cells``) on a (2, 2) mesh:
   reduced bitnet-2b-4t logits equal to the unsharded cells', reduced
   deepseek-moe-16b within 2^-8 through the expert-parallel branch, greedy
-  tokens equal;
+  tokens equal; split-KV decode (one KV head: the cache split on its
+  sequence, each rank attending over its block) logits equal to the
+  unsharded cells' through ``attend_split`` in every decode layer;
 * ``jit_train_step`` on (2, 2), fsdp on and off: the loss within 1e-4 of
   the one-process step, gradients within 1e-3 relative L2 (MoE 1e-2), the
   state back in its placements, whole params alive at once at most the
   params outside the layer stack plus one layer's, gradients
-  shard-sized;
+  shard-sized; the MoE step's experts never all-gathered over 'model',
+  two token all-to-alls per MoE layer forward, each rank's expert-gradient
+  shard within 1e-2 of its slice of the one-process gradient;
 * a checkpoint saved from 4 ranks restored onto 2;
 * ``psum_compressed`` on 2 and 4 ranks (every rank the same mean, near the
   float mean) and two compressed data-parallel steps on 2 ranks;
 * the dry-run per device (``launch.dryrun`` on a fake world of 4 ranks,
   ``launch.mesh.fake_world``): on (2, 2) its FLOPs, kernel tally and
   collective bytes of each kind for reduced bitnet-2b-4t decode and
-  prefill, deepseek-moe-16b decode and the train cell with fsdp on and off
-  equal the same counter around rank 0 of 4 gloo ranks running the same
-  step; on the H100's device type the FLOPs and tally are the same.
+  prefill, deepseek-moe-16b decode, the train cell with fsdp on and off,
+  deepseek-moe-16b's fsdp train cell (all-to-all dispatch) and a split-KV
+  decode equal the same counter around rank 0 of 4 gloo ranks running the
+  same step; on the H100's device type the FLOPs and tally are the same.
 
 Prints one PASS/FAIL line per check and ``ALL_OK`` at the end; exits 1 if
 any check failed.
@@ -70,6 +75,14 @@ def main():
                 check(err <= 2 ** -8 and toks == want and res["ep_calls"] == 2 * 5,
                       f"serving {arch} rank {r}: max err {err:.3g}, tokens equal "
                       f"{toks == want}, EP calls {res['ep_calls']}")
+    cfg1 = td.reduced("bitnet-2b-4t", n_kv_heads=1)
+    outs = td.run_ranks(td.serving_rank, 4, work, "bitnet-2b-4t", 4, 5, {"n_kv_heads": 1},
+                        timeout=600)
+    for r, res in enumerate(outs):
+        err = max(float(np.abs(a - b).max()) for a, b in zip(res["mesh"], res["plain"]))
+        check(err == 0 and res["split_kv_calls"] == cfg1.n_layers * 5,
+              f"split-KV decode rank {r}: logits equal (max err {err}), attend_split calls "
+              f"{res['split_kv_calls']}")
     print(f"serving cells {time.time() - t0:.1f} s", flush=True)
 
     t0 = time.time()
@@ -88,6 +101,15 @@ def main():
               and all(o[arch, fsdp]["same_placements"] for o in outs),
               f"jit_train_step {arch} fsdp={fsdp}: loss {res['loss']:.7f} vs one process "
               f"{res['loss_one']:.7f}, worst grad rel L2 {worst:.2e}")
+    n_moe = td.reduced("deepseek-moe-16b").n_layers
+    for fsdp in (False, True):
+        worst = max(max(o["deepseek-moe-16b", fsdp]["expert_shard_rel"].values()) for o in outs)
+        check(all(o["deepseek-moe-16b", fsdp]["expert_gathers_over_model"] == []
+                  and o["deepseek-moe-16b", fsdp]["all_to_all"] == 2 * n_moe for o in outs)
+              and worst <= 1e-2,
+              f"expert-parallel MoE step fsdp={fsdp}: no expert stack gathered over 'model', "
+              f"{outs[0]['deepseek-moe-16b', fsdp]['all_to_all']} token all-to-alls, worst "
+              f"expert-gradient shard rel L2 {worst:.2e}")
     for o in outs:
         live = o["liveness"]
         check(all(0 < live[m] <= live["top"] + live["layer"] for m in (True, False))
