@@ -66,6 +66,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``tsar_matmul`` must launch 210 x steps times; 8 requests finish, every
    logit is finite; a real ``w_gate`` projection at N=20 equals its plain
    version;
+8b. workload phase: on the same params, each of the seven workload
+   presets of ``repro_torch.workloads`` (steady, bursty, shared-prefix,
+   decode-heavy, preemption-storm, eviction-pressure, mixed) at full size
+   (``quick=False``, seed 0), replayed in virtual time through
+   ``workloads.runner`` as one path each: every request completes,
+   ``tsar_matmul`` launches what the plan predicts for the replay's model
+   calls, and every engine counter but ``plan_kernel`` equals the same
+   trace's replay on the CPU at the reduced config (run in the phase);
+   per preset TTFT p50/p99, TPOT p50/p99, output tok/s, goodput under the
+   spec's SLOs (scale 1.0) and steps printed.  Then ``python -m
+   repro_torch.launch.serve --arch bitnet-2b-4t --workload steady --seed 0``
+   as a subprocess: exit 0 and the steady replay's counters;
 9. policy phase: the same 8 requests on the same params through the
    ``chunked`` and ``whole`` policies (after ``warmup``): greedy tokens equal
    to the ``flat`` run's, launch counts equal to what the plan predicts for
@@ -160,6 +172,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
    a plain fp matmul and launches none), peak device memory printed; a
    reduced config's prefill over numpy-seeded random patches + 4 decode
    steps on the card against the CPU within 1e-4;
+17b. dense configs never served at full width before: ``gemma2-2b``
+   (local/global windows of 4096, softcaps), ``gemma3-4b`` (5 local : 1
+   global, window 1024, qk-norm), ``qwen3-32b`` (qk-norm, 64 / 8 heads)
+   and ``deepseek-coder-33b`` (d 7168, 62 layers), one at a time, each
+   drawn and frozen one layer at a time and freed before the next: 4
+   slots, one prompt longer than the window (window + 104 tokens; 512
+   without one) and 3 short ones, 8 new tokens each, under ``flat``
+   (prefill chunk 512; 128 for gemma2-2b, whose flat step would otherwise
+   gather 32 GiB of keys in one layer) and ``whole``: greedy tokens equal (the near-tie
+   rule of the CPU engine pairs: one request may differ where the rows
+   agree within 0.05 and the margin is below twice that gap), launches as
+   the plan predicts; the dry-run's peak for one decode step at 4 x
+   ``max_len`` within 5 % of the card's ``max_memory_allocated`` for that
+   step; ms per decode step and prefill call, the serving peak, and
+   ``tsar_matmul`` at the 7 projections x N = 4 summed over the layers
+   beside its bound;
 18. training phase: full-width ``bitnet-2b-4t`` (2.74 B latent params, two
    float32 AdamW moments) from ``train.init_state`` on the card, 3 steps of
    ``make_train_step(remat=True, accum_steps=2)`` on the synthetic stream
@@ -193,7 +221,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``bitnet-2b-4t``'s train, prefill and decode cells on 16 x 16 and on the
    multi-pod 2 x 16 x 16 mesh, full width on meta, each cell traced as rank
    0 of a fake world of 256 (512) ranks, one process per CPU core: every
-   cell ``ok``, every (fsdp) train cell with all-gather and reduce-scatter
+   cell ``ok`` (a cell whose dims do not divide its axes traced as the
+   last rank too, each term the larger of the two), every (fsdp) train
+   cell with all-gather and reduce-scatter
    bytes, and the mesh path's layout within its limits (``sweep_outcomes``:
    the MoE train cells keep their experts on 'model' and move tokens by
    all-to-all, bitnet's decode attends over a sequence-split cache); per
@@ -1200,14 +1230,16 @@ def engine_counters(engine) -> dict:
     return out
 
 
-def run_path(torch, engine, reqs, label: str) -> dict:
+def run_path(torch, engine, reqs, label: str, serve=None) -> dict:
     """Serve ``reqs`` as one path: launch counts zeroed just before, read
     just after and held against the plan's prediction for the row counts
     of every model call the run made; every sampled logit row checked
     finite (and kept, for :func:`same_tokens`); every request must finish
     with its ``max_new_tokens`` tokens in ``[0, vocab)``.  The wall time of
     every pure-decode ``engine.step()`` (tracer emission included) and the
-    engine's deterministic counters come back with the tokens."""
+    engine's deterministic counters come back with the tokens.  ``serve``
+    (a function returning the requests it served) takes the place of
+    ``engine.run(reqs)``: a workload trace's replay."""
     widths, finite, rows, last, decode_wall = [], [], {}, {}, []
     sched = engine.sched
     plan_flat, plan_rect = sched.plan_flat, sched.plan
@@ -1253,7 +1285,10 @@ def run_path(torch, engine, reqs, label: str) -> dict:
     engine._prefill_slot, engine.step = recording_prefill_slot, timed_step
     zero_launch_counts()
     t0 = time.perf_counter()
-    engine.run(reqs)
+    if serve is None:
+        engine.run(reqs)
+    else:
+        reqs = serve()
     wall = time.perf_counter() - t0
     launches = launch_counts()
     vocab = engine.cfg.vocab_size
@@ -1271,6 +1306,7 @@ def run_path(torch, engine, reqs, label: str) -> dict:
     n_tok = sum(len(r.out_tokens) for r in reqs)
     pct = engine.latency_percentiles()
     out = {"launches": launches, "tokens": [r.out_tokens for r in reqs], "rows": rows,
+           "requests": reqs,
            "steps": engine.stats["steps"], "whole_prefills": engine.stats["whole_prefills"],
            "widths": sorted(set(widths)), "wall": wall,
            "decode_ms": engine.stats["decode_s"] / max(1, decode_steps) * 1e3,
@@ -1316,6 +1352,39 @@ def same_tokens(torch, a: dict, b: dict, what: str) -> None:
     difference :func:`divergence` prints where, then this fails."""
     if divergence(torch, a, b, what) is not None:
         raise AssertionError(f"{what}: greedy tokens differ")
+
+
+# The near-tie rule of the port's engine pairs (tests/_torch_serving.py):
+# where two runs' greedy tokens first differ, their logit rows agree within
+# ROW_GAP and the first run's margin between the two picks is below
+# MARGIN_PER_GAP times that gap; one request per pair at most.
+ROW_GAP, MARGIN_PER_GAP = 0.05, 2.0
+
+
+def same_tokens_or_near_tie(torch, a: dict, b: dict, what: str) -> dict | None:
+    """:func:`same_tokens` under the near-tie rule: one request may pick
+    another greedy token where the runs' logit rows there agree within
+    ``ROW_GAP`` and run ``a``'s margin between the two picks is below
+    ``MARGIN_PER_GAP`` times their gap (its later tokens are not compared);
+    anything else fails.  Returns the excuse used (request, token, margin,
+    gap), or None."""
+    excuses = []
+    divergence(torch, a, b, what)
+    for uid, (ta, tb) in enumerate(zip(a["tokens"], b["tokens"])):
+        if ta == tb:
+            continue
+        j = next(j for j, (x, y) in enumerate(zip(ta, tb)) if x != y)
+        ra, rb = a["rows"][(uid, j)], b["rows"][(uid, j)]
+        gap = (ra - rb).abs().max().item()
+        margin = (ra[ta[j]] - ra[tb[j]]).item()
+        _require(gap <= ROW_GAP and margin < MARGIN_PER_GAP * gap,
+                 f"{what}: request {uid} token {j} is not a near tie (margin {margin:.6g}, "
+                 f"rows {gap:.6g} apart)")
+        excuses.append({"request": uid, "token": j, "margin": margin, "gap": gap})
+        print(f"{what}: request {uid} token {j} excused as a near tie (margin {margin:.6g}, "
+              f"rows {gap:.6g} apart)", flush=True)
+    _require(len(excuses) <= 1, f"{what}: more than one request needs the near-tie rule")
+    return excuses[0] if excuses else None
 
 
 def bitlinear_leaves(params) -> dict:
@@ -2145,6 +2214,197 @@ def moe_phase(torch, cfg) -> dict:
     return {"runs": runs, "cross_policy_same": same}
 
 
+def workload_phase(torch, cfg, params) -> dict:
+    """8b: each workload preset (``repro_torch.workloads``) at full size
+    (``quick=False``, seed 0) replayed in virtual time on the card through
+    ``workloads.runner`` on the full-width frozen ``params``, as one path
+    each: every request completes, ``tsar_matmul`` launches what the plan
+    predicts for the replay's model calls, and the engine's counters equal
+    those of the same trace replayed on the CPU at the reduced config
+    (every key but ``plan_kernel``: the scheduler sees lengths and the
+    spec's engine hints, never the model's width).  Then the serve CLI
+    once, as a subprocess: ``--workload steady --seed 0`` exits 0 and
+    prints the in-process steady replay's counters."""
+    from repro_torch.models import model_zoo
+    from repro_torch.serving import freeze_params
+    from repro_torch.workloads import WORKLOADS, generate, metrics, preset, runner
+
+    small = cfg.reduced()
+    small_params = freeze_params(model_zoo.init_params(small, torch.Generator().manual_seed(0),
+                                                       "cpu"))
+    out = {}
+    for name in WORKLOADS:
+        spec = preset(name, quick=False, seed=0)
+        trace = generate(spec)
+        want = runner.run_workload(spec, small, small_params, trace=trace,
+                                   device="cpu")[0]["counters"]
+        engine = runner.build_engine(spec, cfg, params, device=torch.device("cuda"))
+        engine.warmup(seq_len=max(len(t.prompt) + t.max_new_tokens for t in trace.requests))
+        wall = []
+
+        def serve():
+            reqs, w = runner.replay(engine, trace, warmup=False)
+            wall.append(w)
+            return reqs
+
+        run = run_path(torch, engine, None, f"workload {name}", serve=serve)
+        got = metrics.engine_counters(engine)
+        kernel = got.pop("plan_kernel")
+        want.pop("plan_kernel")
+        _require(got == want, f"workload {name}: counters on the card {got}, reduced on the "
+                 f"CPU {want}")
+        m = metrics.latency_metrics(run["requests"], trace, wall[0])
+        t, p, g = m["ttft_s"], m["tpot_s"], m["goodput"]
+        out[name] = {"counters": got, "metrics": m, "launches": run["launches"]}
+        print(f"workload {name} ({trace.n_requests} requests, "
+              f"{trace.fingerprint()[:18]}...): TTFT p50/p99 {t['p50'] * 1e3:.1f}/"
+              f"{t['p99'] * 1e3:.1f} ms | TPOT p50/p99 {p['p50'] * 1e3:.2f}/{p['p99'] * 1e3:.2f} "
+              f"ms | {m['output_tok_s']:.1f} out tok/s | goodput {g['good']}/{g['total']} at SLO "
+              f"scale 1.0 (ttft {spec.slo.get('ttft_s')} s, tpot {spec.slo.get('tpot_s')} s: "
+              f"the spec's) | steps {got['steps']}, preemptions {got['preemptions']}, "
+              f"prefix hit rate {got.get('prefix_hit_rate', 0.0):.3f} | {len(got)} counters "
+              f"equal to the reduced CPU replay's | plan {kernel} | {gpu_line()}", flush=True)
+        del engine, run
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch", cfg.name,
+                           "--workload", "steady", "--seed", "0"], cwd=ROOT, timeout=600,
+                          env=dict(os.environ, PYTHONPATH=str(SRC)), capture_output=True,
+                          text=True)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("counters:")]
+    _require(proc.returncode == 0 and len(lines) == 1,
+             f"serve --workload steady: exit {proc.returncode}\n{proc.stdout[-2000:]}"
+             f"\n{proc.stderr[-2000:]}")
+    c = out["steady"]["counters"]
+    _require(lines[0].startswith(
+        f"counters: steps={c['steps']} preemptions={c['preemptions']} "
+        f"prefill_tokens={c['prefill_tokens']} prefix_hit_rate=0.000 "),
+        f"serve --workload steady: {lines[0]} against the replay's {c}")
+    print(f"serve CLI --workload steady --seed 0 (subprocess): exit 0 | "
+          f"{next(ln for ln in proc.stdout.splitlines() if ln.startswith('TTFT'))} | "
+          f"{lines[0]}", flush=True)
+    return out
+
+
+# Phase 17b's configs, never served at full width before: windowed
+# attention with softcaps, 5:1 local:global with qk-norm, qk-norm at 64/8
+# heads, and the deepest and widest dense stack.
+DENSE_ARCHS = ("gemma2-2b", "gemma3-4b", "qwen3-32b", "deepseek-coder-33b")
+# Short prompts beside the long one, new tokens per request, the flat
+# policy's prefill chunk.  The flat branch gathers each token's whole key
+# row (``models.layers.attention``: T x max_len keys per layer, copied to
+# float64), so at gemma2-2b's max_len of 4224 a chunk of 512 would ask for
+# 32 GiB in one layer; its chunk is cut to 128.
+DENSE_SHORT, DENSE_NEW = (24, 40, 64), 8
+DENSE_CHUNK = {"gemma2-2b": 128}
+
+
+def dense_requests(request_cls, cfg) -> list:
+    """Phase 17b's traffic (numpy seed 0): one prompt longer than the
+    config's attention window (window + 104 tokens; 512 without a window),
+    so that its local layers mask at full width, and 3 short prompts; 8 new
+    tokens each."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    long = cfg.window_size + 104 if cfg.window_pattern else 512
+    return [request_cls(uid=i, prompt=rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32),
+                        max_new_tokens=DENSE_NEW)
+            for i, n in enumerate((long,) + DENSE_SHORT)]
+
+
+def dense_config_phase(torch, cfg) -> dict:
+    """17b for one config: full-width params drawn and frozen one layer at
+    a time, 4 slots, the traffic of :func:`dense_requests` under ``flat``
+    (prefill chunk 512, ``DENSE_CHUNK`` where cut) and ``whole``: every
+    request finishes, every logit finite, ``tsar_matmul`` launching what
+    the plan predicts, greedy tokens
+    equal (near-tie rule); the dry-run's peak for one decode step at 4 x
+    ``max_len`` (packed, bf16 cache) within 5 % of the card's
+    ``max_memory_allocated`` for the same step; ``tsar_matmul`` at the
+    config's 7 projections x N = 4, timed, summed over the layers."""
+    import numpy as np
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model_zoo
+    from repro_torch.serving import Request, ServingEngine
+
+    dev = torch.device("cuda")
+    label = cfg.name
+    params = init_frozen(torch, cfg, by_block=True, label=label)
+    reqs = dense_requests(Request, cfg)
+    max_len = -(-(max(len(r.prompt) for r in reqs) + DENSE_NEW + 2) // 16) * 16
+    chunk = DENSE_CHUNK.get(cfg.name, 512)
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for policy in ("flat", "whole"):
+        engine = ServingEngine(cfg, params, max_len=max_len, batch_slots=4,
+                               prefill_chunk=chunk, policy=policy, device=dev)
+        engine.warmup(seq_len=64)
+        runs[policy] = run_path(torch, engine, dense_requests(Request, cfg),
+                                f"{label} {policy}")
+        del engine
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    excuse = same_tokens_or_near_tie(torch, runs["flat"], runs["whole"],
+                                     f"{label} flat vs whole")
+
+    # The dry-run's decode step at 4 x max_len against the card's.
+    shape = ShapeConfig("decode_card", max_len, 4, "decode")
+    rec = dryrun.run_cell(cfg, shape, make_mesh((1, 1), ("data", "model")), "1x1",
+                          weights="packed", verbose=False, fsdp=False,
+                          cache_dtype=torch.bfloat16)
+    _require(rec["status"] == "ok", f"dry-run {label} decode_card: {rec.get('error')}")
+    mem = rec["memory_analysis"]
+    pred = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    other = torch.cuda.memory_allocated() - FROZEN_ALLOC[label]
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(4, 1))).int().to(dev)
+    cache = model_zoo.init_cache(cfg, 4, max_len, torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    logits, cache = model_zoo.decode_step(cfg, params, tokens, cache, max_len - 1)
+    torch.cuda.synchronize()
+    card = torch.cuda.max_memory_allocated() - other
+    launches = launch_counts()["tsar_matmul"]
+    _require(bool(torch.isfinite(logits).all()), f"{label} decode_card: logits")
+    del logits, cache, tokens
+    gap = abs(card - pred) / pred
+    _require(launches == rec["kernels"].get("tsar_matmul", 0),
+             f"{label} decode_card: {launches} launches, tally {rec['kernels']}")
+    _require(gap <= 0.05, f"{label} decode_card: card peak {card} B against {pred:.0f} B "
+             f"predicted ({100 * gap:.2f} %)")
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    shapes = step_shapes(cfg)
+    points = {(k, m): matmul_point(torch, gen, 4, k, m) for k, m in sorted(
+        {(k, m) for _, k, m in shapes})}
+    kern = {key: sum(points[(k, m)][key] for _, k, m in shapes) * cfg.n_layers
+            for key in ("ms", "bound_ms")}
+    f, w = runs["flat"], runs["whole"]
+    print(f"{label} (17b): {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads, prompts {[len(r.prompt) for r in reqs]}"
+          f"{f' (window {cfg.window_size})' if cfg.window_pattern else ''}, max_len {max_len} | "
+          f"flat: decode {f['decode_ms']:.2f} ms/step, prefill {f['prefill_ms']:.2f} ms/call "
+          f"(chunk {chunk}), {f['steps']} steps | whole: decode {w['decode_ms']:.2f} "
+          f"ms/step, prefill {w['prefill_ms']:.2f} ms/call, {w['steps']} steps | tokens "
+          f"{'equal' if excuse is None else 'equal but one near tie'} | serving peak "
+          f"{serve_peak:.2f} GiB | decode step at 4 x {max_len}: dry-run {pred / 2**30:.3f} "
+          f"GiB, card {card / 2**30:.3f} GiB ({100 * gap:.2f} % off), {launches} launches = "
+          f"tally | tsar_matmul per N=4 step {kern['ms']:.4f} ms (bound {kern['bound_ms']:.4f} "
+          f"ms) | {gpu_line()}", flush=True)
+    del params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"decode_ms": f["decode_ms"], "prefill_ms": f["prefill_ms"],
+            "whole_decode_ms": w["decode_ms"], "whole_prefill_ms": w["prefill_ms"],
+            "peak_gib": serve_peak, "card_peak": card, "pred_peak": pred,
+            "kernel_ms": kern["ms"], "bound_ms": kern["bound_ms"], "near_tie": excuse}
+
+
 def whole_phase(torch, cfg, per_step: int, per_prefill: int, by_block: bool = True,
                 max_len: int = 256, traced: bool = False) -> dict:
     """Full-width serving under ``whole`` (the SSM, hybrid, enc-dec and VLM
@@ -2599,7 +2859,10 @@ def sweep_phase(torch) -> list:
               f"{r['cost']['bytes accessed']:.4g} B, all-to-all "
               f"{f['collectives'].get('all-to-all', 0.0):.4g} B, collective bytes "
               f"{coll}; compute {f['compute_s']:.4g} s, memory {f['memory_s']:.4g} s, "
-              f"collective {f['collective_s']:.4g} s -> {f['bound']} ({r['wall_s']} s)",
+              f"collective {f['collective_s']:.4g} s -> {f['bound']} ({r['wall_s']} s)"
+              + "".join(f" | rank {k}: temp {v['memory_analysis']['temp_size_in_bytes']:.4g} "
+                        f"B, bytes accessed {v['counts']['bytes accessed']:.4g} B, flops "
+                        f"{v['counts']['flops']:.4g}" for k, v in r.get("ranks", {}).items()),
               flush=True)
         if r["mode"] == "train_step":
             _require(f["collectives"].get("all-gather", 0) > 0
@@ -2627,8 +2890,18 @@ def sweep_outcomes(recs: list) -> None:
     with all-to-all bytes; deepseek-moe-16b's train_4k holds less than
     21.82 GB and all-gathers less than 146.2 GB; bitnet-2b-4t's decode_32k
     moves at most 8.09 GB of collectives on both meshes and holds less than
-    6.04 GB (3.02 on 2 x 16 x 16)."""
+    6.04 GB (3.02 on 2 x 16 x 16); qwen3-32b's prefill_32k keeps its query
+    heads split (8 KV heads on 16 'model' ranks) and accesses at most a
+    tenth of the 868,199.7 GB the replicated heads did; a cell whose dims
+    do not divide its axes carries rank 0's and the last rank's counts."""
     by = {(r["arch"], r["shape"], r["mesh"]): r for r in recs}
+    for r in recs:
+        ranks = sorted(r.get("ranks", {}), key=int)
+        _require(ranks == (["0", str(r["chips"] - 1)] if r.get("uneven") else []),
+                 f"dry-run {r['arch']} {r['shape']} {r['mesh']}: uneven {r.get('uneven')}, "
+                 f"ranks {sorted(r.get('ranks', {}))}")
+    qwen = by["qwen3-32b", "prefill_32k", "single"]["cost"]["bytes accessed"] / 1e9
+    _require(qwen <= 868_199.7 / 10, f"dry-run qwen3-32b prefill_32k: {qwen:.1f} GB accessed")
 
     def get(arch, shape, mesh="single"):
         r = by[arch, shape, mesh]
@@ -2650,7 +2923,9 @@ def sweep_outcomes(recs: list) -> None:
                  f"{coll}")
     print("dry-run sweep outcomes: experts kept on 'model' (llama4-maverick-400b, "
           "deepseek-moe-16b train_4k) and split-KV decode (bitnet-2b-4t decode_32k, both "
-          "meshes) within their limits", flush=True)
+          f"meshes) within their limits; qwen3-32b prefill_32k {qwen:.1f} GB accessed per "
+          f"device; {sum('ranks' in r for r in recs)} cells traced as rank 0 and the last "
+          "rank", flush=True)
 
 
 def _example(name: str):
@@ -3026,6 +3301,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False     # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
     cfg = configs.get(ARCH)
+    t_start = time.perf_counter()
+
+    def elapsed(what: str) -> None:
+        print(f"elapsed: {time.perf_counter() - t_start:.1f} s after {what}", flush=True)
+
     # 3-7. kernels
     kern = kernel_phase(torch, cfg)
     sparse = sparse_kernel_phase(torch, cfg)
@@ -3035,6 +3315,7 @@ def main() -> int:
     family_kernel_phase(torch, family_cfgs)
     encdec_cfg, vlm_cfg = configs.get(ENCDEC_ARCH), configs.get(VLM_ARCH)
     large_kernel_phase(torch, {encdec_cfg: encdec_cfg.enc_seq, vlm_cfg: LARGE_NS[-1]})
+    elapsed("phases 3-7 (kernels)")
     # 8-15. paths, each run with the launch counts zeroed just before it
     params = init_frozen(torch, cfg, kill_blocks=False)
     flat_run = engine_phase(torch, cfg, params, profile=args.profile)
@@ -3048,6 +3329,10 @@ def main() -> int:
     # 19a. the dry-run against what the card allocates for the same tree
     del flat_run, prefix_runs
     dryrun_card_phase(torch, cfg, params)
+    elapsed("phases 8-10c, 19a (bitnet paths)")
+    # 8b. the seven workload presets replayed on the same params; the CLI
+    workload_phase(torch, cfg, params)
+    elapsed("phase 8b (workload presets, serve CLI)")
     del params
     cpu_agreement(torch, cfg)
     obs_agreement(torch, cfg)
@@ -3055,9 +3340,11 @@ def main() -> int:
     bl_launches = bitlinear_phase(torch, cfg)["launches"]
     # 12a. the conformance grid through apply_frozen on the card
     grid_phase(torch)
+    elapsed("phases 11-12a (sparse engine, bitlinear, grid)")
     # 13-15. the MoE, SSM and hybrid families' serving paths at full width
     moe_cfg, ssm_cfg, hybrid_cfg = family_cfgs
     moe_phase(torch, moe_cfg)
+    elapsed("phase 13 (MoE)")
     for fcfg in (ssm_cfg, hybrid_cfg):
         shapes = step_shapes(fcfg)
         whole_phase(torch, fcfg, per_step=len(shapes) * fcfg.n_layers,
@@ -3074,6 +3361,11 @@ def main() -> int:
     whole_phase(torch, vlm_cfg, per_step=per_layer * vlm_cfg.n_layers,
                 per_prefill=per_layer * vlm_cfg.n_layers,
                 max_len=vlm_cfg.frontend_seq + 128 + 64)
+    elapsed("phases 14-17 (SSM, hybrid, enc-dec, VLM)")
+    # 17b. the four dense configs at full width, one at a time
+    for arch in DENSE_ARCHS:
+        dense_config_phase(torch, configs.get(arch))
+    elapsed("phase 17b (dense configs)")
     # 18. training: full-width bitnet trained, frozen and served both ways;
     # a restart on the reduced config; one train step per family vs the CPU
     trained = train_phase(torch, cfg)
@@ -3081,11 +3373,14 @@ def main() -> int:
     del trained
     restart_phase(torch, cfg)
     train_agreement(torch, [cfg, moe_cfg, ssm_cfg, hybrid_cfg, encdec_cfg, vlm_cfg])
+    elapsed("phase 18 (training)")
     # 19b-19c. the dry-run sweep on meta; the examples on the card
     sweep_phase(torch)
+    elapsed("phase 19b (sweep)")
     examples_phase(torch)
     # 20. across devices: one NCCL rank per card
     mesh_phase(torch)
+    elapsed("phase 20 (mesh)")
 
     # Per kernel, the seven projections at N=4: times 30 layers for the two
     # kernels of the serving step (one decode step), one layer for the two of

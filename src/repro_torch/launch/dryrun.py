@@ -265,12 +265,14 @@ def lower_cell(cfg, shape, mesh: Mesh, *, weights: str = "packed", fsdp: bool = 
             moment_dtype="bfloat16" if cfg.n_params() > BIG_PARAMS else "float32")
         state = init_state(cfg, None, opt_cfg, device="meta")
         batch = zoo.input_specs(cfg, shape)
+        meta = {"mode": "train_step",
+                "uneven": uneven_dims(mesh, state.params, fsdp, batch, rows_over_model=True)}
         if device_mesh is not None:
             step = jit_train_step(cfg, opt_cfg, device_mesh, state, batch, fsdp=fsdp,
                                   remat=remat)
             specs = step.state_specs
             return (Lowered(step, (step.place(state), batch), (specs, step.batch_specs),
-                            (specs, None)), {"mode": "train_step"})
+                            (specs, None)), meta)
         pspecs = sharding.param_specs(state.params, mesh, fsdp=fsdp)
         mspecs = sharding.param_specs(state.opt.mu, mesh, fsdp=fsdp)
         state_specs = TrainState(params=pspecs,
@@ -279,7 +281,7 @@ def lower_cell(cfg, shape, mesh: Mesh, *, weights: str = "packed", fsdp: bool = 
         bspecs = sharding.batch_specs(mesh, batch)
         step = make_train_step(cfg, opt_cfg, remat=remat)
         return (Lowered(step, (state, batch), (state_specs, bspecs), (state_specs, None)),
-                {"mode": "train_step"})
+                meta)
 
     # Inference cells: params in the requested weight format.  Serve cells
     # take FSDP only when the tensor-parallel shards alone would not fit:
@@ -296,6 +298,7 @@ def lower_cell(cfg, shape, mesh: Mesh, *, weights: str = "packed", fsdp: bool = 
     inputs = zoo.input_specs(cfg, shape, cache_dtype=cache_dtype)
     cache = inputs.pop("cache")
     cspecs = sharding.cache_specs(mesh, cache, cfg.n_kv_heads)
+    uneven = uneven_dims(mesh, params, p_fsdp, {"tokens": inputs["tokens"]}, cache)
     # decode / serve_step: the step's length is the cache's last row, so
     # attention reads the whole cache as the reference's traced step does.
     t_last = shape.seq_len - 1
@@ -312,10 +315,44 @@ def lower_cell(cfg, shape, mesh: Mesh, *, weights: str = "packed", fsdp: bool = 
     if kind == "prefill":
         bspecs = sharding.batch_specs(mesh, inputs)
         return (Lowered(prefill, (params, inputs, cache), (pspecs, bspecs, cspecs),
-                        (None, cspecs)), {"mode": "prefill"})
+                        (None, cspecs)), {"mode": "prefill", "uneven": uneven})
     tspec = sharding.batch_specs(mesh, {"tokens": inputs["tokens"]})["tokens"]
     return (Lowered(decode, (params, inputs["tokens"], cache, inputs["t"]),
-                    (pspecs, tspec, cspecs, ()), (None, cspecs)), {"mode": "serve_step"})
+                    (pspecs, tspec, cspecs, ()), (None, cspecs)),
+            {"mode": "serve_step", "uneven": uneven})
+
+
+def uneven_dims(mesh: Mesh, params, fsdp: bool, batch: dict, cache=None,
+                rows_over_model: bool = False) -> list:
+    """Where a cell's dims do not divide its mesh axes, so that ranks may
+    hold unequal shares: each param leaf's dimension that its rule
+    (``sharding.param_spec``) shards over axes that do not divide it, the
+    batch's rows over the data axes (for a train cell also a data slice's
+    rows over 'model', as ``train.sharded_loss_and_grads`` splits them),
+    and each cache leaf's batch over the data axes.  Returns them as
+    ``"path: n over k"`` strings; empty where everything divides."""
+    mesh = sharding._as_mesh(mesh)
+    dsz = sharding._axes_size(mesh, sharding._data_axes(mesh))
+    msz = mesh.shape["model"]
+    out = []
+
+    def walk(tree, path, rule):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, path + (str(k),), rule)
+        elif isinstance(tree, torch.Tensor):
+            for i, n, k in sharding.undivided(mesh, tuple(tree.shape), rule(path, tree)):
+                out.append(f"{'/'.join(path)}[{i}]: {n} over {k}")
+
+    walk(params, (), lambda path, leaf: sharding.param_spec(path, leaf, fsdp=fsdp))
+    rows = batch["tokens"].shape[0]
+    if rows % dsz:
+        out.append(f"batch: {rows} rows over {dsz}")
+    elif rows_over_model and (rows // dsz) % msz:
+        out.append(f"batch: {rows // dsz} rows of a data slice over {msz}")
+    if cache is not None:
+        walk(cache, ("cache",), lambda path, leaf: (None, "__data__"))
+    return out
 
 
 class MeshCells(NamedTuple):
@@ -415,24 +452,48 @@ def measure(lowered: Lowered, mesh: Mesh) -> dict:
             "collectives": {k: float(v) for k, v in trace.collectives.items()}}
 
 
+def _trace_rank(cfg, shape, mesh: Mesh, rank: int, weights: str, kw: dict) -> tuple:
+    """(lower_cell's meta, measure's counts) of the cell as ``rank`` of a
+    fake world of ``mesh.size`` ranks (a 1 x 1 mesh: the plain step)."""
+    world = fake_world(mesh, rank=rank) if mesh.size > 1 else contextlib.nullcontext()
+    with world as device_mesh:
+        lowered, meta = lower_cell(cfg, shape, mesh, weights=weights,
+                                   device_mesh=device_mesh, **kw)
+        m = measure(lowered, mesh)
+        del lowered
+    return meta, m
+
+
+def _larger(a: dict, b: dict) -> dict:
+    """Per term, the larger of two ranks' :func:`measure` counts."""
+    return {part: {k: max(a[part].get(k, 0), b[part].get(k, 0))
+                   for k in {**a[part], **b[part]}} for part in a}
+
+
 def run_cell(cfg, shape, mesh: Mesh, mesh_name: str, weights: str = "packed",
              verbose: bool = True, **kw) -> dict:
     """One cell's record.  A mesh of more than one device is traced as
     rank 0 of a fake world of ``mesh.size`` ranks (``mesh.fake_world``,
     destroyed before this returns; a process group already initialized
-    here is an error, never replaced).  Any failure is the record's
-    ``status: "error"`` with its reason."""
+    here is an error, never replaced).  Where a dim of the cell's params,
+    batch or cache does not divide its axes (:func:`uneven_dims`, listed
+    under ``uneven``), the last rank is traced too: each term of the record
+    is the larger of the two ranks', and ``ranks`` holds both ranks' own
+    counts.  Any failure is the record's ``status: "error"`` with its
+    reason."""
     chips = mesh.size
     rec: dict[str, Any] = {"arch": cfg.name, "shape": shape.name, "mesh": mesh_name,
                            "chips": int(chips), "weights": weights, "status": "ok"}
     t0 = time.time()
     try:
-        with fake_world(mesh) if chips > 1 else contextlib.nullcontext() as device_mesh:
-            lowered, meta = lower_cell(cfg, shape, mesh, weights=weights,
-                                       device_mesh=device_mesh, **kw)
-            rec.update(meta)
-            m = measure(lowered, mesh)
-            del lowered
+        meta, m = _trace_rank(cfg, shape, mesh, 0, weights, kw)
+        uneven = meta.pop("uneven")
+        rec.update(meta)
+        if chips > 1 and uneven:
+            last = _trace_rank(cfg, shape, mesh, chips - 1, weights, kw)[1]
+            rec["uneven"] = uneven
+            rec["ranks"] = {"0": m, str(chips - 1): last}
+            m = _larger(m, last)
         mf = rl.model_flops_for_cell(cfg, shape)
         roof = rl.analyze(cfg.name, shape.name, mesh_name, int(chips), m["counts"], mf,
                           memory_stats=m["memory_analysis"], collectives=m["collectives"])

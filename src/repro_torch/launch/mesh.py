@@ -122,16 +122,17 @@ def device_mesh(mesh: Mesh, device: str | torch.device = "cuda"):
 
 
 @contextlib.contextmanager
-def fake_world(mesh: Mesh, device_type: str = "cuda"):
-    """This process as rank 0 of a world of ``mesh.size`` ranks, and the
+def fake_world(mesh: Mesh, device_type: str = "cuda", rank: int = 0):
+    """This process as ``rank`` of a world of ``mesh.size`` ranks, and the
     ``DeviceMesh`` of ``mesh`` over it, for the extent of the ``with``.
 
     The world is ``torch.distributed``'s ``fake`` backend (with its
     ``FakeStore``, from ``torch.testing``): every rank but this one exists
     only in name, and a collective returns at once with its output as it
     came (its shape is right, its values are not).  Meant for meta tensors,
-    which hold no values: the dry-run traces rank 0's share of a step
-    through the same code that runs across real ranks.  ``device_type`` is
+    which hold no values: the dry-run traces one rank's share of a step
+    through the same code that runs across real ranks (rank 0, and the last
+    rank too where a cell's dims do not divide its axes).  ``device_type`` is
     the mesh's: DTensor picks some collectives by it (a ``cpu`` mesh, gloo's,
     has no all-to-all and all-gathers instead); no device of that type is
     needed.  Raises if a process group is already initialized (it would be
@@ -143,8 +144,27 @@ def fake_world(mesh: Mesh, device_type: str = "cuda"):
                            "would replace it")
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=mesh.size)
+    if not 0 <= rank < mesh.size:
+        raise ValueError(f"rank {rank} is outside a world of {mesh.size}")
+    _clear_sharding_cache()
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=mesh.size)
     try:
         yield device_mesh(mesh, device_type)
     finally:
         dist.destroy_process_group()
+        _clear_sharding_cache()
+
+
+def _clear_sharding_cache() -> None:
+    """Empty DTensor's caches of sharding propagations (the Python one, and
+    the native dispatch's where the torch version has one).  Their entries
+    hold the output specs' ``DeviceMesh``, and a mesh of another world
+    compares equal (same layout and names) while its process groups' names
+    are that world's rank's: a later world as another rank would run
+    collectives on groups it does not have."""
+    from torch.distributed.tensor import DTensor
+
+    DTensor._op_dispatcher.sharding_propagator.propagate_op_sharding.cache_clear()
+    native = getattr(torch._C, "_clear_DTensor_sharding_propagator_cache", None)
+    if native is not None:
+        native()

@@ -38,13 +38,26 @@ formats, read by either package's ``obs`` modules):
 * ``--metrics-textfile PATH`` — rewrite a Prometheus textfile every
   ``--metrics-interval`` seconds, and once at the end.
 
-``--workload``, ``--trace-file`` and ``--seed`` of the reference's ``serve.py``
-are not ported: they replay the reference's benchmark workloads.
+Trace-driven serving (``serve_workload``): ``--workload NAME`` generates a
+named workload trace (``repro_torch.workloads.WORKLOADS``: steady, bursty,
+shared-prefix, decode-heavy, preemption-storm, eviction-pressure, mixed;
+``--smoke`` takes the quick size, ``--seed N`` shifts every stream), and
+``--trace-file PATH`` loads a trace JSON where the file exists (replayed
+verbatim) or saves the generated one there.  The engine is built from the
+trace's engine hints, the trace is replayed in virtual time
+(``workloads.runner.replay``), and the run prints the trace's fingerprint,
+TTFT / TPOT percentiles, goodput under the trace's SLOs and the
+deterministic counters, as the reference's ``serve.py`` does; the traces
+are byte-equal to the reference generator's.  The observability flags
+compose with it:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch bitnet-2b-4t \
+        --smoke --device cpu --workload preemption-storm --seed 0 \
+        [--trace-file /tmp/storm.json]
 """
 from __future__ import annotations
 
 import argparse
-import contextlib
 import os
 import sys
 from pathlib import Path
@@ -62,6 +75,8 @@ from repro_torch.obs.trace import (STEP_RANGE, EventTracer, MemorySink, RingSink
                                    StreamingSink, TeeSink)
 from repro_torch.plan import ModelPlan, format_plan
 from repro_torch.serving import Request, ServingEngine, freeze_params
+from repro_torch.workloads import generator, metrics, runner
+from repro_torch.workloads.trace import Trace
 
 _SPARSE = {"auto": "auto", "true": True, "false": False}
 
@@ -146,6 +161,38 @@ def _obs_finish(args, obs: dict) -> None:
 
 
 
+def _model(args, dev) -> tuple:
+    """(config, params) as the flags ask: random weights from a generator
+    seeded 0 on ``dev``, frozen unless ``--no-packed`` (before the engine,
+    so the latent float32 weights can be dropped)."""
+    cfg = configs.get(args.arch)
+    if args.smoke:
+        cfg = cfg.reduced()
+    params = zoo.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    if not args.no_packed:
+        block = (args.sparse_block[0], args.sparse_block[-1]) if args.sparse_block else None
+        params = freeze_params(params, sparse=_SPARSE[args.sparse], block_shape=block)
+    return cfg, params
+
+
+def _profiled(args, engine, serve):
+    """``serve()``, under ``torch.profiler`` with ``--profile-steps`` (host
+    ops, and the card's kernels on a CUDA device; the Chrome trace goes
+    beside ``--trace-out``); returns what ``serve`` returns."""
+    if not args.profile_steps:
+        return serve()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if engine.device.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        out = serve()
+    path = Path(args.trace_out)
+    path = str(path.with_name(path.stem + ".torch.json"))
+    prof.export_chrome_trace(path)
+    n = sum(e.name.startswith(STEP_RANGE) for e in prof.events())
+    print(f"torch.profiler: {path} ({n} {STEP_RANGE} ranges over "
+          f"{engine.stats['steps']} steps)", file=sys.stderr)
+    return out
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
@@ -175,6 +222,17 @@ def main(argv=None):
                     type=int, metavar="CAPACITY_BLOCKS",
                     help="enable prefix-caching KV reuse; optional value "
                          "caps the cached-block footprint (LRU-evicted)")
+    ap.add_argument("--workload", default=None, metavar="NAME",
+                    help="serve a generated workload trace instead of the "
+                         "built-in request list (repro_torch.workloads.WORKLOADS) "
+                         "and report percentile TTFT/TPOT + goodput under the "
+                         "trace's SLOs")
+    ap.add_argument("--trace-file", default=None, metavar="PATH",
+                    help="workload trace JSON: loaded if it exists (replayed "
+                         "verbatim), otherwise the trace generated by --workload "
+                         "is saved there")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="workload generation seed (with --workload)")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="record the run and save a Perfetto trace_event JSON "
                          "document (python -m repro_torch.obs.timeline PATH)")
@@ -204,18 +262,11 @@ def main(argv=None):
     if args.profile_steps and not args.trace_out:
         ap.error("--profile-steps writes its trace beside --trace-out")
 
+    if args.workload or args.trace_file:
+        return serve_workload(args)
+
     dev = resolve_device(args.device)
-    cfg = configs.get(args.arch)
-    if args.smoke:
-        cfg = cfg.reduced()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    block = None
-    if args.sparse_block:
-        block = (args.sparse_block[0], args.sparse_block[-1])
-    params = zoo.init_params(cfg, gen, dev)
-    if not args.no_packed:
-        # Freeze before the engine so the latent fp32 weights can be dropped.
-        params = freeze_params(params, sparse=_SPARSE[args.sparse], block_shape=block)
+    cfg, params = _model(args, dev)
     plan = None
     if args.plan_file and os.path.exists(args.plan_file):
         plan = ModelPlan.load(args.plan_file)
@@ -244,21 +295,7 @@ def main(argv=None):
     reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, size=4 + i % 8),
                     max_new_tokens=args.max_new)
             for i in range(args.requests)]
-    prof = contextlib.nullcontext()
-    if args.profile_steps:
-        # The loop under torch.profiler: host ops, and the card's kernels on
-        # a CUDA device; the Chrome trace goes beside --trace-out.
-        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-        prof = profile(activities=acts)
-    with prof:
-        engine.run(reqs)
-    if args.profile_steps:
-        out = Path(args.trace_out)
-        path = str(out.with_name(out.stem + ".torch.json"))
-        prof.export_chrome_trace(path)
-        n = sum(e.name.startswith(STEP_RANGE) for e in prof.events())
-        print(f"torch.profiler: {path} ({n} {STEP_RANGE} ranges over "
-              f"{engine.stats['steps']} steps)", file=sys.stderr)
+    _profiled(args, engine, lambda: engine.run(reqs))
     for r in reqs[:4]:
         print(f"req {r.uid}: {r.out_tokens}")
     print(f"prefill {engine.stats['prefill_s']:.2f}s | "
@@ -271,6 +308,54 @@ def main(argv=None):
         print(f"prefix cache: hit rate {engine.stats['prefix_hit_rate']:.2f} | "
               f"{engine.stats['cached_blocks']} cached blocks | "
               f"{engine.stats['prefix_evictions']} evictions")
+    _obs_finish(args, obs)
+    return engine, reqs
+
+
+def serve_workload(args):
+    """Trace-driven serving: generate (or load) a workload trace, replay it
+    in virtual time on an engine built from its hints, and report
+    percentile latencies, goodput and the deterministic counters.  Returns
+    (engine, requests in trace order)."""
+    if args.trace_file and os.path.exists(args.trace_file):
+        trace = Trace.load(args.trace_file)
+        spec = generator.WorkloadSpec.from_dict(trace.spec)
+        print(f"trace: loaded {args.trace_file} ({trace.n_requests} requests,"
+              f" workload {trace.name!r}, {trace.fingerprint()[:18]}…)")
+    else:
+        if not args.workload:
+            raise SystemExit("--trace-file points at a missing file and no "
+                             "--workload was given to generate one")
+        spec = generator.preset(args.workload, quick=args.smoke, seed=args.seed)
+        trace = generator.generate(spec)
+        print(f"trace: generated workload {spec.name!r} "
+              f"({trace.n_requests} requests, seed {args.seed}, "
+              f"{trace.fingerprint()[:18]}…)")
+        if args.trace_file:
+            trace.save(args.trace_file)
+            print(f"trace: saved to {args.trace_file}")
+
+    dev = resolve_device(args.device)
+    cfg, params = _model(args, dev)
+    obs = _obs_setup(args)
+    engine = runner.build_engine(spec, cfg, params, packed=not args.no_packed,
+                                 tracer=obs["tracer"], incidents=obs["monitor"],
+                                 device=dev, profiler_annotations=args.profile_steps)
+    _obs_start(args, engine, obs)
+    reqs, wall = _profiled(args, engine, lambda: runner.replay(engine, trace))
+    m = metrics.latency_metrics(reqs, trace, wall)
+    c = metrics.engine_counters(engine)
+    t, p, g = m["ttft_s"], m["tpot_s"], m["goodput"]
+    print(f"TTFT p50/p90/p99 {t['p50'] * 1e3:.0f}/{t['p90'] * 1e3:.0f}/"
+          f"{t['p99'] * 1e3:.0f}ms | TPOT p50/p99 {p['p50'] * 1e3:.2f}/"
+          f"{p['p99'] * 1e3:.2f}ms")
+    print(f"goodput {g['good']}/{g['total']} ({g['slo_attained']:.0%}) "
+          f"under SLO | {m['output_tok_s']:.1f} out tok/s | "
+          f"wall {m['wall_s']:.2f}s")
+    print(f"counters: steps={c['steps']} preemptions={c['preemptions']} "
+          f"prefill_tokens={c['prefill_tokens']} "
+          f"prefix_hit_rate={c.get('prefix_hit_rate', 0.0):.3f} "
+          f"plan_kernel={c['plan_kernel']}")
     _obs_finish(args, obs)
     return engine, reqs
 

@@ -552,16 +552,21 @@ def _context_mesh(cfg, q, k, v, mask, dtype):
     rank attends over its own block of positions and the partial softmax
     is combined across the axis (:func:`attend_split`, the split-KV
     scheme); heads over 'model' where the KV heads divide (a query head's
-    group stays with its KV head); else queries split on their sequence
-    axis against whole keys.  The context comes back (B, S, H, Dh) in
-    those placements.  DTensor's einsum strategies are not needed (some
-    versions refuse a head-sharded score einsum)."""
+    group stays with its KV head); where the query heads divide the axis
+    and the KV heads do not but divide its size (qwen3-32b: 64 and 8 heads
+    on 16 ranks), the queries keep their head split and each rank takes
+    from whole keys the one KV head its block of queries belongs to
+    (:func:`_kv_head_of`); else queries split on their sequence axis
+    against whole keys.  The context comes back (B, S, H, Dh) in those
+    placements.  DTensor's einsum strategies are not needed (some versions
+    refuse a head-sharded score einsum)."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = q.device_mesh
     b, s, t = q.shape[0], q.shape[1], k.shape[1]
-    qpl, kpl, mpl, split_kv = [], [], [], []
+    h, hk = q.shape[2], k.shape[2]
+    qpl, kpl, mpl, split_kv, kv_head = [], [], [], [], None
     if mask is not None and not is_dtensor(mask):
         mask = DTensor.from_local(mask, mesh, (Replicate(),) * mesh.ndim, run_check=False)
     for i, pl in enumerate(q.placements):
@@ -576,9 +581,15 @@ def _context_mesh(cfg, q, k, v, mask, dtype):
             kpl.append(Shard(1))
             mpl.append(Shard(mask.ndim - 1) if mask is not None and mask.shape[-1] == t
                        else Replicate())
-        elif pl == Shard(2) and k.shape[2] % mesh.shape[i] == 0:
+        elif pl == Shard(2) and hk % mesh.shape[i] == 0:
             qpl.append(Shard(2))
             kpl.append(Shard(2))
+            mpl.append(Replicate())
+        elif (pl == Shard(2) and kv_head is None and h % mesh.shape[i] == 0
+              and mesh.shape[i] % hk == 0):
+            kv_head = _kv_head_of(mesh, i, hk)
+            qpl.append(Shard(2))
+            kpl.append(Replicate())
             mpl.append(Replicate())
         elif pl == Shard(1) and s % mesh.shape[i] == 0:
             qpl.append(Shard(1))
@@ -592,6 +603,8 @@ def _context_mesh(cfg, q, k, v, mask, dtype):
     groups = tuple(mesh.get_group(i) for i in split_kv)
 
     def local(ql, kl, vl, ml):
+        if kv_head is not None:
+            kl, vl = kl[:, :, kv_head:kv_head + 1], vl[:, :, kv_head:kv_head + 1]
         return _context(cfg, ql, kl, vl, ml, dtype, groups).reshape(ql.shape)
 
     fn = local_map(local, out_placements=list(qpl),
@@ -599,6 +612,14 @@ def _context_mesh(cfg, q, k, v, mask, dtype):
                                   None if mask is None else tuple(mpl)),
                    device_mesh=mesh, redistribute_inputs=True)
     return fn(q, k, v, mask)
+
+
+def _kv_head_of(mesh, i: int, hk: int) -> int:
+    """The KV head of this rank's block of query heads on mesh axis ``i``,
+    whose size m is a multiple of the ``hk`` KV heads: the H query heads
+    split into m contiguous blocks, and KV head j serves query heads
+    [j * H / hk, (j + 1) * H / hk), so blocks r with r // (m / hk) == j."""
+    return mesh.get_local_rank(i) // (mesh.shape[i] // hk)
 
 
 def _scores(cfg, qg: torch.Tensor, k: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:

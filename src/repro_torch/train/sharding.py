@@ -158,6 +158,22 @@ def sanitize_spec(mesh: Mesh, shape: tuple, spec_in: tuple) -> tuple:
     return spec(*out)
 
 
+def undivided(mesh: Mesh, shape: tuple, spec_in: tuple) -> list:
+    """The dimensions of ``shape`` that ``spec_in`` shards over axes whose
+    size does not divide them (:func:`sanitize_spec` drops those to
+    replicated): (dimension, its size, the axes' size) each."""
+    mesh = _as_mesh(mesh)
+    out = []
+    for i, s in enumerate(spec_in):
+        if s is None:
+            continue
+        axes = _data_axes(mesh) if s == "__data__" else s if isinstance(s, tuple) else (s,)
+        size = _axes_size(mesh, axes)
+        if shape[i] % size:
+            out.append((i, shape[i], size))
+    return out
+
+
 # --- batch / cache rules ----------------------------------------------------
 
 def batch_spec(mesh: Mesh, batch_size: int) -> tuple:

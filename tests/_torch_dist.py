@@ -359,14 +359,15 @@ def train_cli_rank(rank: int, n: int, argv: list) -> int:
 
 
 def serving_rank(rank: int, n: int, arch: str, prompt_len: int, steps: int,
-                 overrides: dict | None = None) -> dict:
+                 overrides: dict | None = None, dims: tuple | None = None) -> dict:
     """Prefill and ``steps`` greedy decode steps of the frozen reduced
     ``arch`` (with config ``overrides``) through ``dryrun.mesh_cells`` on
-    the (2, 2) mesh, beside the unsharded ``prefill`` / ``decode_step`` on
-    the same params; the (N, K, M) of every call of ``tsar_matmul``'s
-    wrapper on the mesh path (on the CPU it takes the plain version, and
-    ``LAUNCHES`` counts only kernel launches) and the expert-parallel
-    calls."""
+    the (2, 2) mesh (or a ('data', 'model') mesh of ``dims``), beside the
+    unsharded ``prefill`` / ``decode_step`` on the same params; the (N, K,
+    M) of every call of ``tsar_matmul``'s wrapper on the mesh path (on the
+    CPU it takes the plain version, and ``LAUNCHES`` counts only kernel
+    launches), the expert-parallel calls, and the query heads of every call
+    of the attention core (``layers.attend_core``) on the mesh path."""
     from repro_torch.kernels import tsar_matmul
     from repro_torch.launch import dryrun
     from repro_torch.models import layers, model_zoo, moe
@@ -393,7 +394,13 @@ def serving_rank(rank: int, n: int, arch: str, prompt_len: int, steps: int,
     plain = greedy(lambda bt, c: model_zoo.prefill(cfg, params, bt, c),
                    lambda tk, c, t: model_zoo.decode_step(cfg, params, tk, c, t),
                    model_zoo.init_cache(cfg, b, max_len, torch.float32, "cpu"))
-    cells = dryrun.mesh_cells(cfg, params, mesh22(n))
+    if dims is None:
+        dm = mesh22(n)
+    else:
+        from repro_torch.launch import mesh as mesh_lib
+
+        dm = mesh_lib.device_mesh(mesh_lib.make_mesh(dims, ("data", "model")), "cpu")
+    cells = dryrun.mesh_cells(cfg, params, dm)
     moe.EP_CALLS["expert_parallel"] = 0
     calls: list = []
     wrapper = tsar_matmul.tsar_matmul_packed
@@ -415,15 +422,24 @@ def serving_rank(rank: int, n: int, arch: str, prompt_len: int, steps: int,
         split_calls[0] += 1
         return attend_split(*a, **kw)
 
+    core_heads: list = []
+    attend_core = layers.attend_core
+
+    def counted_core(cfg_, qg, *a):
+        core_heads.append(qg.shape[2] * qg.shape[3])          # (B, Sq, Hk, G, Dh)
+        return attend_core(cfg_, qg, *a)
+
     tsar_matmul.tsar_matmul_packed, layers.attend_split = recorded, counted_split
+    layers.attend_core = counted_core
     try:
         mesh = greedy(step(cells.prefill), step(cells.decode_step), cells.place_cache(
             model_zoo.init_cache(cfg, b, max_len, torch.float32, "cpu")))
     finally:
         tsar_matmul.tsar_matmul_packed, layers.attend_split = wrapper, attend_split
+        layers.attend_core = attend_core
     return {"plain": [t.numpy() for t in plain], "mesh": [t.numpy() for t in mesh],
             "calls": calls, "ep_calls": moe.EP_CALLS["expert_parallel"],
-            "split_kv_calls": split_calls[0]}
+            "split_kv_calls": split_calls[0], "core_heads": core_heads}
 
 
 def split_attention_rank(rank: int, n: int) -> dict:
@@ -514,9 +530,9 @@ DRYRUN_CELLS = {
 }
 
 
-def fake_world_counts(name: str, device_type: str = "cuda") -> dict:
+def fake_world_counts(name: str, device_type: str = "cuda", rank: int = 0) -> dict:
     """The dry-run's per-device counts of ``DRYRUN_CELLS[name]`` on (2, 2),
-    traced as rank 0 of a fake world of ``device_type``: FLOPs, kernel
+    traced as ``rank`` of a fake world of ``device_type``: FLOPs, kernel
     operations and calls by kernel, collective bytes by kind."""
     import repro_torch.configs as configs
     from repro_torch.launch import dryrun
@@ -524,7 +540,7 @@ def fake_world_counts(name: str, device_type: str = "cuda") -> dict:
 
     arch, fields, kw, overrides = DRYRUN_CELLS[name]
     mesh = make_mesh((2, 2), ("data", "model"))
-    with fake_world(mesh, device_type) as dm:
+    with fake_world(mesh, device_type, rank) as dm:
         lowered, _ = dryrun.lower_cell(reduced(arch, **overrides),
                                        configs.ShapeConfig(*fields), mesh, device_mesh=dm, **kw)
         m = dryrun.measure(lowered, mesh)

@@ -9,7 +9,6 @@ project's float contract: plans, greedy tokens and counters are equal,
 except that one request per run may pick another token where the
 reference's own logits sit at a near tie (see :func:`near_tie`)."""
 import functools
-import time
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +24,7 @@ from repro.serving import ServingEngine as JServingEngine
 from repro.serving.engine import freeze_params as jfreeze
 from repro_torch import bridge
 from repro_torch.serving import Request, ServingEngine
+from repro_torch.workloads import runner
 
 COUNTERS = ("steps", "prefill_tokens", "decode_tokens", "total_tokens",
             "peak_kv_blocks", "max_step_tokens", "preemptions", "whole_prefills",
@@ -96,42 +96,18 @@ def port_params(arch: str) -> dict:
 
 
 def workload_engine(spec, cfg, params, *, prefix_cache=None, **kw):
-    """The port's engine on the CPU from a workload spec's engine hints, as
-    ``benchmarks.workloads.runner.build_engine`` builds the reference's;
-    ``prefix_cache`` overrides the hint, ``kw`` adds options (``tracer``,
-    ``incidents``, ...)."""
-    e = spec.engine
-    return ServingEngine(
-        cfg, params, device="cpu", max_len=e.get("max_len", 128),
-        batch_slots=e.get("slots", 4), prefill_chunk=e.get("prefill_chunk", 16),
-        block_size=e.get("block_size", 16), kv_blocks=e.get("kv_blocks"),
-        prefix_cache=e.get("prefix_cache", False) if prefix_cache is None else prefix_cache,
-        **kw)
+    """The port's engine on the CPU from a workload spec's engine hints
+    (``repro_torch.workloads.runner.build_engine``); ``prefix_cache``
+    overrides the hint, ``kw`` adds options (``tracer``, ``incidents``,
+    ...)."""
+    return runner.build_engine(spec, cfg, params, prefix_cache=prefix_cache, device="cpu",
+                               **kw)
 
 
 def replay(engine, trace, step_dt: float = 1.0):
-    """``benchmarks.workloads.runner.replay`` for the port's engine: one
-    engine step advances virtual time by ``step_dt``; every request whose
-    arrival has passed is submitted before the next step."""
-    order = sorted(trace.requests, key=lambda t: (t.arrival, t.uid))
-    reqs = [Request(uid=t.uid, prompt=np.asarray(t.prompt, np.int32),
-                    max_new_tokens=t.max_new_tokens, temperature=t.temperature)
-            for t in order]
-    engine.warmup(seq_len=max(len(t.prompt) + t.max_new_tokens for t in order))
-    vt, i, n = 0.0, 0, len(reqs)
-    t0 = time.perf_counter()
-    while i < n or engine.busy:
-        while i < n and order[i].arrival <= vt + 1e-9:
-            engine.submit(reqs[i])
-            i += 1
-        if not engine.step():
-            assert not engine.queue_len, "a request can never be admitted"
-            if i < n:
-                vt = max(vt, order[i].arrival)
-                continue
-        vt += step_dt
-    by_uid = {r.uid: r for r in reqs}
-    return [by_uid[t.uid] for t in trace.requests], time.perf_counter() - t0
+    """The trace replayed through the port's engine in virtual time
+    (``repro_torch.workloads.runner.replay``): (requests, wall seconds)."""
+    return runner.replay(engine, trace, step_dt=step_dt)
 
 
 def requests(cls, lens, max_new: int, seed: int, vocab: int = 100) -> list:

@@ -22,6 +22,13 @@ world (``launch.mesh.fake_world``) on the meta device.
 * the same cell traced twice in one process, another between, gives equal
   records; the fake group is gone after ``run_cell``, a real one is never
   replaced, and a failure is a record with ``status: "error"``;
+* uneven splits: the fake world takes any rank; a cell whose dims all
+  divide is traced once with rank 0's counts as they are; full-width
+  bitnet-2b-4t train_4k on 2 x 16 x 16 (8 rows of a data slice over 16
+  'model' ranks) records rank 0 and rank 511 and the larger of each term;
+  full-width qwen3-32b prefill_32k keeps its query heads split (each rank
+  its 4 of 64 against their one KV head): bytes accessed per device at
+  most a tenth of what the replicated branch counted;
 * against the reference on four host devices in a subprocess
   (``tests/_jax_dryrun_ref.py``): per-device argument bytes on (2, 2) equal
   XLA's but for the frozen ``density`` leaves a serve step never reads
@@ -197,6 +204,16 @@ def test_fake_world_equals_real_ranks(one_torch_thread, real_ranks, name):  # no
 
 
 @pytest.mark.parametrize("name", sorted(DRYRUN_CELLS))
+def test_last_rank_of_fake_world_equals_real_last_rank(one_torch_thread, real_ranks,  # noqa: F811
+                                                       name):
+    """The dry-run's second trace of an uneven cell: rank 3 of the fake
+    world counts what rank 3 of the real gloo ranks counts."""
+    real = dict(real_ranks[3][name])
+    real.pop("ep_calls")
+    assert fake_world_counts(name, "cpu", rank=3) == real
+
+
+@pytest.mark.parametrize("name", sorted(DRYRUN_CELLS))
 def test_device_types_differ_in_the_all_to_all_only(one_torch_thread, name):  # noqa: F811
     """The H100's device type (the dry-run's) against gloo's: the same
     FLOPs, tally, all-reduces and reduce-scatters; where DTensor moves a
@@ -271,6 +288,76 @@ def test_failure_is_an_error_record(monkeypatch):
                           "2x2", verbose=False)
     assert rec["status"] == "error" and rec["error"] == "RuntimeError: sharded op failed"
     assert "roofline" not in rec and not dist.is_initialized()
+
+
+# ---------------------------------------------------------------------------
+# Uneven splits: the last rank traced too; the query heads' split kept
+# ---------------------------------------------------------------------------
+
+def test_fake_world_takes_any_rank():
+    with fake_world(MESH22, rank=3) as dm:
+        assert dist.get_rank() == 3 and tuple(dm.get_coordinate()) == (1, 1)
+    assert not dist.is_initialized()
+    with pytest.raises(ValueError, match="outside"):
+        with fake_world(MESH22, rank=4):
+            pass
+    assert not dist.is_initialized()
+
+
+def test_even_cell_is_traced_once(one_torch_thread, monkeypatch):  # noqa: F811
+    """Every dim of the cell divides its axes: one trace, rank 0's, and the
+    record holds its counts as they are, with no ``uneven`` or ``ranks``."""
+    traced = []
+    trace_rank = dryrun._trace_rank
+
+    def counted(cfg, shape, mesh, rank, weights, kw):
+        traced.append(rank)
+        return trace_rank(cfg, shape, mesh, rank, weights, kw)
+
+    monkeypatch.setattr(dryrun, "_trace_rank", counted)
+    rec = _cell("bitnet_decode")
+    assert traced == [0]
+    assert "uneven" not in rec and "ranks" not in rec
+    arch, fields, kw, overrides = DRYRUN_CELLS["bitnet_decode"]
+    with fake_world(MESH22) as dm:
+        lowered, meta = dryrun.lower_cell(reduced(arch, **overrides),
+                                          configs.ShapeConfig(*fields), MESH22,
+                                          device_mesh=dm, **kw)
+        m = dryrun.measure(lowered, MESH22)
+    assert meta["uneven"] == []
+    assert rec["cost"] == m["counts"] and rec["memory_analysis"] == m["memory_analysis"]
+    assert rec["kernels"] == m["kernels"]
+
+
+def test_uneven_train_cell_records_both_ranks(one_torch_thread):  # noqa: F811
+    """Full-width bitnet-2b-4t train_4k on 2 x 16 x 16: 256 rows give 8 per
+    data slice, which do not split over 16 'model' ranks.  Rank 0 and rank
+    511 are both traced and recorded; each term of the record is the
+    larger of the two."""
+    rec = dryrun._run_job(("bitnet-2b-4t", "train_4k", "multi", "packed", {}))
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["uneven"] == ["batch: 8 rows of a data slice over 16"]
+    assert sorted(rec["ranks"]) == ["0", "511"]
+    ranks = list(rec["ranks"].values())
+    for part, key in (("memory_analysis", "temp_size_in_bytes"), ("counts", "flops"),
+                      ("counts", "bytes accessed")):
+        want = max(r[part][key] for r in ranks)
+        assert (rec["cost"] if part == "counts" else rec[part])[key] == want > 0
+    coll = {k for r in ranks for k in r["collectives"]}
+    assert rec["roofline"]["collectives"] == {
+        k: max(r["collectives"].get(k, 0.0) for r in ranks) for k in coll}
+
+
+def test_qwen3_prefill_attends_its_own_heads(one_torch_thread):  # noqa: F811
+    """Full-width qwen3-32b prefill_32k on 16 x 16: 64 query heads split
+    over 'model', 8 KV heads do not.  Each rank attends its 4 query heads
+    against their one KV head, so the per-device bytes accessed fall to at
+    most a tenth of the 868,199.7 GB the replicated branch counted (about
+    a sixteenth: attention's float64 score tiles dominate)."""
+    rec = dryrun._run_job(("qwen3-32b", "prefill_32k", "single", "packed", {}))
+    assert rec["status"] == "ok", rec.get("error")
+    assert "ranks" not in rec
+    assert rec["cost"]["bytes accessed"] <= 868_199.7e9 / 10
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,9 @@ branch (counted), logits within 2^-8 and the greedy tokens equal.  Reduced
 mamba2-780m, hymba-1.5b and whisper-tiny (zero-mean random frames): logits
 ``torch.equal`` and the same tokens, through the SSM mixer per rank on its
 batch rows, the cross-attention context per rank and the embedding rows per
-rank.
+rank.  Reduced qwen3-32b (4 query heads, 2 KV heads) on a (1, 4) mesh:
+logits ``torch.equal`` and the same tokens, each rank's attention core on
+its one query head against the KV head it belongs to.
 
 The split-KV scheme (a cache split on its sequence over 'model', reduced
 bitnet-2b-4t with one KV head): decode logits and tokens ``torch.equal``
@@ -90,6 +92,25 @@ def test_ssm_hybrid_encdec_cells_on_mesh_equal_unsharded(tmp_path, arch):
             np.testing.assert_array_equal(got, want, err_msg=f"rank {rank}")
         assert _tokens(res["mesh"]) == _tokens(res["plain"])
         assert all(len(c) >= 2 * cfg.n_layers for c in res["calls"])
+
+
+def test_query_heads_stay_split_where_kv_heads_do_not_divide(tmp_path):
+    """Reduced qwen3-32b (qk-norm; 4 query heads, 2 KV heads) on a (1, 4)
+    mesh: the query heads split over 'model' and the 2 KV heads do not, so
+    each rank attends its one query head against the KV head that head
+    belongs to.  Prefill and 4 decode steps give logits ``torch.equal`` to
+    the unsharded cells' and the same greedy tokens; every call of the
+    attention core on every rank holds 1 query head, not 4."""
+    cfg = reduced("qwen3-32b")
+    assert (cfg.n_heads, cfg.n_kv_heads) == (4, 2) and cfg.qk_norm
+    outs = run_ranks(serving_rank, 4, tmp_path, "qwen3-32b", PROMPT, STEPS, None, (1, 4))
+    for rank, res in enumerate(outs):
+        assert len(res["mesh"]) == STEPS + 1
+        for got, want in zip(res["mesh"], res["plain"]):
+            np.testing.assert_array_equal(got, want, err_msg=f"rank {rank}")
+        assert _tokens(res["mesh"]) == _tokens(res["plain"])
+        assert res["core_heads"] == [1] * cfg.n_layers * (STEPS + 1), f"rank {rank}"
+        assert res["split_kv_calls"] == 0
 
 
 def test_split_kv_decode_on_mesh_equals_unsharded(tmp_path):

@@ -12,7 +12,9 @@ no reference.
   deepseek-moe-16b within 2^-8 through the expert-parallel branch, greedy
   tokens equal; split-KV decode (one KV head: the cache split on its
   sequence, each rank attending over its block) logits equal to the
-  unsharded cells' through ``attend_split`` in every decode layer;
+  unsharded cells' through ``attend_split`` in every decode layer; reduced
+  qwen3-32b on (1, 4) (4 query heads split, 2 KV heads not) logits equal,
+  one query head per attention core on every rank;
 * ``jit_train_step`` on (2, 2), fsdp on and off: the loss within 1e-4 of
   the one-process step, gradients within 1e-3 relative L2 (MoE 1e-2), the
   state back in its placements, whole params alive at once at most the
@@ -29,7 +31,8 @@ no reference.
   prefill, deepseek-moe-16b decode, the train cell with fsdp on and off,
   deepseek-moe-16b's fsdp train cell (all-to-all dispatch) and a split-KV
   decode equal the same counter around rank 0 of 4 gloo ranks running the
-  same step; on the H100's device type the FLOPs and tally are the same.
+  same step, and the fake world's rank 3 the real rank 3's; on the H100's
+  device type the FLOPs and tally are the same.
 
 Prints one PASS/FAIL line per check and ``ALL_OK`` at the end; exits 1 if
 any check failed.
@@ -83,6 +86,15 @@ def main():
         check(err == 0 and res["split_kv_calls"] == cfg1.n_layers * 5,
               f"split-KV decode rank {r}: logits equal (max err {err}), attend_split calls "
               f"{res['split_kv_calls']}")
+    outs = td.run_ranks(td.serving_rank, 4, work, "qwen3-32b", 8, 4, None, (1, 4),
+                        timeout=600)
+    for r, res in enumerate(outs):
+        toks = [np.argmax(x, -1).tolist() for x in res["mesh"]]
+        want = [np.argmax(x, -1).tolist() for x in res["plain"]]
+        err = max(float(np.abs(a - b).max()) for a, b in zip(res["mesh"], res["plain"]))
+        check(err == 0 and toks == want and set(res["core_heads"]) == {1},
+              f"serving qwen3-32b on (1, 4) rank {r}: logits equal (max err {err}), tokens "
+              f"equal, query heads per attention core {sorted(set(res['core_heads']))}")
     print(f"serving cells {time.time() - t0:.1f} s", flush=True)
 
     t0 = time.time()
@@ -149,6 +161,9 @@ def main():
               f"dry-run {name} on (2, 2): fake world = rank 0 of 4 gloo ranks "
               f"({fake['flops']:.0f} FLOPs, tally {fake['kernels']}, collectives "
               f"{fake['collectives']})")
+        last = {k: v for k, v in outs[3][name].items() if k != "ep_calls"}
+        check(td.fake_world_counts(name, "cpu", rank=3) == last,
+              f"dry-run {name} on (2, 2): fake world rank 3 = rank 3 of 4 gloo ranks")
         cuda = td.fake_world_counts(name, "cuda")
         check(cuda["flops"] == fake["flops"] and cuda["kernels"] == fake["kernels"],
               f"dry-run {name} on the H100's device type: collectives {cuda['collectives']}")
