@@ -78,6 +78,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
    spec's SLOs (scale 1.0) and steps printed.  Then ``python -m
    repro_torch.launch.serve --arch bitnet-2b-4t --workload steady --seed 0``
    as a subprocess: exit 0 and the steady replay's counters;
+8c. long context: on the same params, the main path at bitnet-2b-4t's
+   whole 4096-token window (``max_len`` 4096, 4 slots, block 16, prefill
+   chunk 512, so 516 tokens per flat step), four prompts of 4064, 4064,
+   2048 and 256 tokens (numpy seed 0) with 16 new tokens each, under
+   ``flat``, ``chunked`` and ``whole``: every request finishes, every logit
+   is finite, ``tsar_matmul`` launches what the plan predicts, greedy
+   tokens equal (the near-tie rule of 17b); then one flat step of 516
+   tokens over the full (4, 4096) view: the card's ``max_memory_allocated``
+   within 5 % of the meta count's peak (``launch.dryrun.MetaTrace``) plus
+   the step's arguments; ms per prefill call and decode step per policy,
+   the serving peak, and the step's meta peak and bytes accessed beside
+   the card's peak printed;
 9. policy phase: the same 8 requests on the same params through the
    ``chunked`` and ``whole`` policies (after ``warmup``): greedy tokens equal
    to the ``flat`` run's, launch counts equal to what the plan predicts for
@@ -179,8 +191,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
    drawn and frozen one layer at a time and freed before the next: 4
    slots, one prompt longer than the window (window + 104 tokens; 512
    without one) and 3 short ones, 8 new tokens each, under ``flat``
-   (prefill chunk 512; 128 for gemma2-2b, whose flat step would otherwise
-   gather 32 GiB of keys in one layer) and ``whole``: greedy tokens equal (the near-tie
+   (prefill chunk 512) and ``whole``: greedy tokens equal (the near-tie
    rule of the CPU engine pairs: one request may differ where the rows
    agree within 0.05 and the margin is below twice that gap), launches as
    the plan predicts; the dry-run's peak for one decode step at 4 x
@@ -2284,17 +2295,142 @@ def workload_phase(torch, cfg, params) -> dict:
     return out
 
 
+# Phase 8c: bitnet-2b-4t at its whole published context (4096 tokens, the
+# BitNet b1.58 2B4T model card), 4 slots, block 16, a Sarathi-sized prefill
+# chunk of 512 (a flat step of 516 tokens); two prompts filling the window,
+# one half of it and a short turn, 16 new tokens each.
+LONG_MAX_LEN, LONG_SLOTS, LONG_CHUNK = 4096, 4, 512
+LONG_PROMPTS, LONG_NEW = (4064, 4064, 2048, 256), 16
+
+
+def long_requests(request_cls, cfg) -> list:
+    """Phase 8c's traffic: prompts of ``LONG_PROMPTS`` tokens (numpy seed
+    0), ``LONG_NEW`` new tokens each."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [request_cls(uid=i, prompt=rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32),
+                        max_new_tokens=LONG_NEW) for i, n in enumerate(LONG_PROMPTS)]
+
+
+def long_context_phase(torch, cfg, params) -> dict:
+    """8c: :func:`long_requests` through ``ServingEngine`` (``max_len``
+    4096, 4 slots, block 16, prefill chunk 512) under every policy, each as
+    one path (:func:`run_path`: requests finish, logits finite, launches as
+    the plan predicts); greedy tokens equal to the ``flat`` run's under the
+    near-tie rule; then :func:`long_flat_step`."""
+    from repro_torch.serving import Request, ServingEngine
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for policy in POLICIES:
+        engine = ServingEngine(cfg, params, max_len=LONG_MAX_LEN, batch_slots=LONG_SLOTS,
+                               prefill_chunk=LONG_CHUNK, block_size=16, policy=policy,
+                               device=dev)
+        engine.warmup(seq_len=64)
+        runs[policy] = run_path(torch, engine, long_requests(Request, cfg), f"long {policy}")
+        del engine
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    excuses = {pol: same_tokens_or_near_tie(torch, runs["flat"], runs[pol],
+                                            f"long flat vs {pol}") for pol in POLICIES[1:]}
+    step = long_flat_step(torch, cfg, params)
+    print(f"long context (8c): {cfg.name}, max_len {LONG_MAX_LEN}, {LONG_SLOTS} slots, chunk "
+          f"{LONG_CHUNK}, prompts {list(LONG_PROMPTS)}, {LONG_NEW} new tokens | " + " | ".join(
+              f"{pol}: prefill {r['prefill_ms']:.2f} ms/call, decode {r['decode_ms']:.2f} "
+              f"ms/step, {r['steps']} steps ({r['whole_prefills']} whole prefills), TTFT p50 "
+              f"{r['ttft_ms']:.1f} ms, TPOT p50 {r['tpot_ms']:.2f} ms"
+              for pol, r in runs.items())
+          + f" | tokens {'equal' if not any(excuses.values()) else f'equal but {excuses}'} | "
+          f"serving peak {serve_peak:.2f} GiB | {gpu_line()}", flush=True)
+    return {"runs": runs, "peak_gib": serve_peak, "near_tie": excuses, "step": step}
+
+
+def long_flat_step(torch, cfg, params) -> dict:
+    """One flat step of ``LONG_CHUNK + LONG_SLOTS`` rows (slot 0's last 512
+    positions, one decode token in each other slot, one padding row, as the
+    engine fills its token budget) over the full
+    (4, 4096) float32 view, as ``model_zoo.flat_step`` runs it in the
+    engine: the card's ``max_memory_allocated`` for the step (the params,
+    its arguments and its peak) within 5 % of ``dryrun.MetaTrace``'s count
+    of the same step on meta (its peak of live bytes plus the arguments);
+    its logits finite and its ``tsar_matmul`` launches the meta tally's."""
+    import numpy as np
+
+    from repro_torch.kernels import tally
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model_zoo
+    from repro_torch.serving import freeze_params
+
+    t = LONG_CHUNK + LONG_SLOTS
+    rng = np.random.default_rng(3)
+    host = {"tokens": rng.integers(0, cfg.vocab_size, size=t).astype(np.int32),
+            "slot": np.repeat(np.arange(LONG_SLOTS + 1),
+                              [LONG_CHUNK] + [1] * (LONG_SLOTS - 1) + [1]),
+            "pos": np.concatenate([np.arange(LONG_MAX_LEN - LONG_CHUNK, LONG_MAX_LEN),
+                                   np.array(LONG_PROMPTS[1:]) - 1, [0]]),
+            "emit_row": np.arange(LONG_CHUNK - 1, t - 1)}
+    shape = (cfg.n_layers, LONG_SLOTS, LONG_MAX_LEN, cfg.n_kv_heads, cfg.head_dim)
+
+    def step_args(dev):
+        ints = {k: torch.from_numpy(v).to(dev, torch.int32 if k == "tokens" else torch.long)
+                for k, v in host.items()}
+        cache = {n: torch.zeros(shape, device=dev) for n in ("k", "v")}
+        return ints["tokens"], ints["slot"], ints["pos"], cache, ints["emit_row"]
+
+    meta_params = freeze_params(model_zoo.param_specs(cfg))
+    meta_args = step_args(torch.device("meta"))
+    trace = dryrun.MetaTrace(dryrun._storage_keys((meta_params,) + meta_args))
+    del tally.TALLY[:]
+    try:
+        with trace:
+            model_zoo.flat_step(cfg, meta_params, *meta_args)
+        tallied = tally.counts().get("tsar_matmul", 0)
+    finally:
+        del tally.TALLY[:]
+    pred = dryrun._nbytes((meta_params,) + meta_args) + trace.peak
+    del meta_params, meta_args
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    other = torch.cuda.memory_allocated() - FROZEN_ALLOC["engine"]
+    args = step_args(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = model_zoo.flat_step(cfg, params, *args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    card = torch.cuda.max_memory_allocated() - other
+    launches = launch_counts()["tsar_matmul"]
+    _require(bool(torch.isfinite(logits).all()), "long flat step: logits")
+    del logits, cache, args
+    gap = abs(card - pred) / pred
+    print(f"long flat step (8c): T {t} over a ({LONG_SLOTS}, {LONG_MAX_LEN}) float32 view, "
+          f"{ms:.2f} ms (host clock, one cold call) | meta count: peak {trace.peak / 2**30:.3f} "
+          f"GiB beyond the arguments, bytes accessed {trace.bytes_accessed / 1e9:.1f} GB, with "
+          f"the arguments {pred / 2**30:.3f} GiB | card {card / 2**30:.3f} GiB "
+          f"({100 * gap:.2f} % off) | {launches} tsar_matmul launches = tally | {gpu_line()}",
+          flush=True)
+    _require(launches == tallied, f"long flat step: {launches} launches, tally {tallied}")
+    _require(gap <= 0.05, f"long flat step: card peak {card} B against {pred:.0f} B "
+             f"counted ({100 * gap:.2f} %)")
+    return {"ms": ms, "meta_peak": trace.peak, "bytes_accessed": trace.bytes_accessed,
+            "pred": pred, "card": card}
+
+
 # Phase 17b's configs, never served at full width before: windowed
 # attention with softcaps, 5:1 local:global with qk-norm, qk-norm at 64/8
 # heads, and the deepest and widest dense stack.
 DENSE_ARCHS = ("gemma2-2b", "gemma3-4b", "qwen3-32b", "deepseek-coder-33b")
 # Short prompts beside the long one, new tokens per request, the flat
-# policy's prefill chunk.  The flat branch gathers each token's whole key
-# row (``models.layers.attention``: T x max_len keys per layer, copied to
-# float64), so at gemma2-2b's max_len of 4224 a chunk of 512 would ask for
-# 32 GiB in one layer; its chunk is cut to 128.
-DENSE_SHORT, DENSE_NEW = (24, 40, 64), 8
-DENSE_CHUNK = {"gemma2-2b": 128}
+# policy's prefill chunk.
+DENSE_SHORT, DENSE_NEW, DENSE_CHUNK = (24, 40, 64), 8, 512
 
 
 def dense_requests(request_cls, cfg) -> list:
@@ -2314,7 +2450,7 @@ def dense_requests(request_cls, cfg) -> list:
 def dense_config_phase(torch, cfg) -> dict:
     """17b for one config: full-width params drawn and frozen one layer at
     a time, 4 slots, the traffic of :func:`dense_requests` under ``flat``
-    (prefill chunk 512, ``DENSE_CHUNK`` where cut) and ``whole``: every
+    (prefill chunk 512) and ``whole``: every
     request finishes, every logit finite, ``tsar_matmul`` launching what
     the plan predicts, greedy tokens
     equal (near-tie rule); the dry-run's peak for one decode step at 4 x
@@ -2334,12 +2470,11 @@ def dense_config_phase(torch, cfg) -> dict:
     params = init_frozen(torch, cfg, by_block=True, label=label)
     reqs = dense_requests(Request, cfg)
     max_len = -(-(max(len(r.prompt) for r in reqs) + DENSE_NEW + 2) // 16) * 16
-    chunk = DENSE_CHUNK.get(cfg.name, 512)
     torch.cuda.reset_peak_memory_stats()
     runs = {}
     for policy in ("flat", "whole"):
         engine = ServingEngine(cfg, params, max_len=max_len, batch_slots=4,
-                               prefill_chunk=chunk, policy=policy, device=dev)
+                               prefill_chunk=DENSE_CHUNK, policy=policy, device=dev)
         engine.warmup(seq_len=64)
         runs[policy] = run_path(torch, engine, dense_requests(Request, cfg),
                                 f"{label} {policy}")
@@ -2389,7 +2524,7 @@ def dense_config_phase(torch, cfg) -> dict:
           f"{cfg.n_kv_heads} heads, prompts {[len(r.prompt) for r in reqs]}"
           f"{f' (window {cfg.window_size})' if cfg.window_pattern else ''}, max_len {max_len} | "
           f"flat: decode {f['decode_ms']:.2f} ms/step, prefill {f['prefill_ms']:.2f} ms/call "
-          f"(chunk {chunk}), {f['steps']} steps | whole: decode {w['decode_ms']:.2f} "
+          f"(chunk {DENSE_CHUNK}), {f['steps']} steps | whole: decode {w['decode_ms']:.2f} "
           f"ms/step, prefill {w['prefill_ms']:.2f} ms/call, {w['steps']} steps | tokens "
           f"{'equal' if excuse is None else 'equal but one near tie'} | serving peak "
           f"{serve_peak:.2f} GiB | decode step at 4 x {max_len}: dry-run {pred / 2**30:.3f} "
@@ -3333,6 +3468,9 @@ def main() -> int:
     # 8b. the seven workload presets replayed on the same params; the CLI
     workload_phase(torch, cfg, params)
     elapsed("phase 8b (workload presets, serve CLI)")
+    # 8c. the main path at the model's whole 4096-token context
+    long_context_phase(torch, cfg, params)
+    elapsed("phase 8c (long context)")
     del params
     cpu_agreement(torch, cfg)
     obs_agreement(torch, cfg)

@@ -292,6 +292,10 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 # above it, which bounds the transient (Sq, T) score tile at
 # B*H*Q_CHUNK*T elements per layer.
 Q_CHUNK = 1024
+# Float64 score elements of one pass of the flat branch (1 GiB): a flat step
+# scores its T queries against as many slots' key rows at a time as this
+# allows, one slot at the least (:func:`_flat_context`).
+FLAT_SCORES = 2 ** 27
 
 
 def split_heads(x: torch.Tensor, n_heads: int, dh: int) -> torch.Tensor:
@@ -445,7 +449,7 @@ def attention(cfg, p: dict, x: torch.Tensor, *, pos: torch.Tensor, is_global: bo
     k = constrain(k, "attn_kv")
     v = constrain(v, "attn_kv")
 
-    new_cache = None
+    new_cache = ctx = None
     if cache is not None and slot is not None:
         nb, vtok = cache["k"].shape[0], cache["k"].shape[1]
         # Explicit flat write index; padding rows go to the dump row nb*vtok.
@@ -454,19 +458,7 @@ def attention(cfg, p: dict, x: torch.Tensor, *, pos: torch.Tensor, is_global: bo
         ck = _flat_write(cache["k"], k[0], widx)
         cv = _flat_write(cache["v"], v[0], widx)
         new_cache = {"k": ck, "v": cv}
-        # Each token attends over its own slot's Vtok key row, as a chunked
-        # or decode query does (the reference flattens the view to one
-        # B*Vtok key axis under a segment mask: the same keys, B times the
-        # scores).  The T tokens become T one-query rows.
-        rows = slot.clamp(max=nb - 1)
-        k, v, q = ck[rows], cv[rows], q[0][:, None]         # (T,Vtok,Hk,Dh), (T,1,H,Dh)
-        b, s = q.shape[0], 1
-        kpos = torch.arange(vtok, device=x.device)[None, :]
-        valid = (slot < nb)[:, None] & (kpos <= pos[:, None])
-        valid = _windowed(cfg, valid, kpos, pos[:, None], is_global)
-        # Padding queries (slot == B) match no key: their softmax row is
-        # uniform over the finite masked scores -- garbage, never emitted.
-        mask = valid[:, None, None, None, :]                # (T,1,1,1,Vtok)
+        ctx = _flat_context(cfg, q, ck, cv, slot, pos, is_global, x.dtype)
     elif cache is not None and torch.as_tensor(cache_len).ndim == 0:
         n_past = int(cache_len)
         start = torch.full((b,), n_past, dtype=torch.long)
@@ -503,11 +495,51 @@ def attention(cfg, p: dict, x: torch.Tensor, *, pos: torch.Tensor, is_global: bo
     # gives every layout the same bits with high probability (not
     # certainty: a float64 value within its own error of a float32 rounding
     # boundary can still round either way).
-    ctx = context(cfg, q, k, v, mask, x.dtype)
+    if ctx is None:
+        ctx = context(cfg, q, k, v, mask, x.dtype)
     out = linear(p["wo"], ctx.reshape(x.shape[0], x.shape[1], h * dh), train)
     if return_kv:
         return out, (k, v)
     return out, new_cache
+
+
+def _flat_context(cfg, q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                  slot: torch.Tensor, pos: torch.Tensor, is_global: bool,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """The flat branch's context (1, T, Hk, G, Dh) of the T packed queries
+    q (1, T, H, Dh) over the updated view ck, cv (B, Vtok, Hk, Dh), in the
+    reference's layout: a group of slots' rows is one key axis (a view of
+    the cache, no copy) under the segment mask ``kslot == slot``, causal in
+    ``pos`` and windowed on local layers, so a token sees exactly its own
+    slot's prefix.  The reference scores every query against all B * Vtok
+    keys at once; here the slots go in as few groups as keep a pass's
+    scores within ``FLAT_SCORES`` (one group, the reference's pass, on a
+    decode step; smaller groups on a long prefill), and each token keeps
+    its own group's row (``torch.where``), its rows from other groups being
+    masked everywhere.  Padding tokens (slot == B) keep the first group's
+    row: uniform over finite masked scores -- garbage, never emitted."""
+    nb, vtok = ck.shape[0], ck.shape[1]
+    slot_scores = q.shape[1] * q.shape[2] * vtok          # T x H x Vtok per slot
+    passes = max(1, min(nb, -(-nb * slot_scores // FLAT_SCORES)))
+    per = -(-nb // passes)                                # slots per pass
+    kpos = torch.arange(vtok, device=q.device)
+    qpos = pos[:, None, None]
+    ctx = None
+    for g0 in range(0, nb, per):
+        n = min(per, nb - g0)
+        kslot = torch.arange(g0, g0 + n, device=q.device)[None, :, None]
+        valid = (slot[:, None, None] == kslot) & (kpos <= qpos)      # (T, n, Vtok)
+        valid = _windowed(cfg, valid, kpos, qpos, is_global)
+        mask = valid.reshape(1, 1, 1, -1, n * vtok)                   # (1,1,1,T,n*Vtok)
+        k = ck[g0:g0 + n].reshape((1, n * vtok) + tuple(ck.shape[2:]))
+        v = cv[g0:g0 + n].reshape((1, n * vtok) + tuple(cv.shape[2:]))
+        part = _context(cfg, q, k, v, mask, dtype)
+        if ctx is None:
+            ctx = part
+        else:
+            mine = (slot >= g0) & (slot < g0 + n)
+            ctx = torch.where(mine[None, :, None, None, None], part, ctx)
+    return ctx
 
 
 def context(cfg, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
