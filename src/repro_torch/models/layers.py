@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import bitlinear, ternary
 from repro_torch.kernels import ops
+from repro_torch.obs import trace as obs_trace
 from repro_torch.plan import registry
 from repro_torch.plan import runtime as plan_runtime
 from repro_torch.sparse import format as sparse_format
@@ -117,22 +118,23 @@ def _packed_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     that XLA fuses; eager PyTorch cannot fuse that spelling, so the port
     calls the hand-written kernel.
     """
-    if is_dtensor(p["sign"]) or is_dtensor(x):
-        return _packed_linear_mesh(p, x)
-    k = x.shape[-1]
-    m = p["scale"].shape[-1]
-    n = x.numel() // k
-    lp = plan_runtime.planned(k, m, n)
-    if lp is not None:
-        kern = lp.kernel
-        if kern in registry.SPARSE_KERNELS:
-            kern = next((kn for kn in registry.SPARSE_KERNELS
-                         if registry.get(kn).supports(p)), kern)
-        impl = registry.get(kern)
-        if impl.serve_via_registry and impl.supports(p):
-            return impl.lower(p, x, lp=lp)
-    tw = ternary.TernaryWeights(p["sign"], p["zero"], p["scale"], (k, m))
-    return ops.tsar_matmul(x, tw)
+    with obs_trace.span("proj"):
+        if is_dtensor(p["sign"]) or is_dtensor(x):
+            return _packed_linear_mesh(p, x)
+        k = x.shape[-1]
+        m = p["scale"].shape[-1]
+        n = x.numel() // k
+        lp = plan_runtime.planned(k, m, n)
+        if lp is not None:
+            kern = lp.kernel
+            if kern in registry.SPARSE_KERNELS:
+                kern = next((kn for kn in registry.SPARSE_KERNELS
+                             if registry.get(kn).supports(p)), kern)
+            impl = registry.get(kern)
+            if impl.serve_via_registry and impl.supports(p):
+                return impl.lower(p, x, lp=lp)
+        tw = ternary.TernaryWeights(p["sign"], p["zero"], p["scale"], (k, m))
+        return ops.tsar_matmul(x, tw)
 
 
 def _packed_linear_mesh(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -315,10 +317,11 @@ def _flat_write(c: torch.Tensor, u: torch.Tensor, widx: torch.Tensor) -> torch.T
     all land on an explicit dump row appended past the live cells and are
     dropped; real rows have distinct indices."""
     nb, vtok = c.shape[0], c.shape[1]
-    flat = torch.cat([c.reshape((nb * vtok,) + tuple(c.shape[2:])),
-                      c.new_zeros((1,) + tuple(c.shape[2:]))], dim=0)
-    flat.index_copy_(0, widx, u.to(c.dtype))
-    return flat[:nb * vtok].reshape(c.shape)
+    with obs_trace.span("kv.write"):
+        flat = torch.cat([c.reshape((nb * vtok,) + tuple(c.shape[2:])),
+                          c.new_zeros((1,) + tuple(c.shape[2:]))], dim=0)
+        flat.index_copy_(0, widx, u.to(c.dtype))
+        return flat[:nb * vtok].reshape(c.shape)
 
 
 def write_rows(c: torch.Tensor, u: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
@@ -431,76 +434,77 @@ def attention(cfg, p: dict, x: torch.Tensor, *, pos: torch.Tensor, is_global: bo
     Returns (out (B, S, D), the updated {'k','v'} view), or (out, (k, v))
     with ``return_kv``; the view is None without a cache.
     """
-    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    b, s, _ = x.shape
+    with obs_trace.span("attn"):
+        h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        b, s, _ = x.shape
 
-    src = x if kv_x is None else kv_x
-    q = split_heads(linear(p["wq"], x, train), h, dh)         # (B,S,H,Dh)
-    k = split_heads(linear(p["wk"], src, train), hk, dh)      # (B,S|T,Hk,Dh)
-    v = split_heads(linear(p["wv"], src, train), hk, dh)
-    if "qn" in p:
-        q = rmsnorm(p["qn"], q, cfg.norm_eps)
-        k = rmsnorm(p["kn"], k, cfg.norm_eps)
-    if kv_x is None:                                    # no RoPE on cross-attention
-        q = rope(q, pos, cfg.rope_theta)
-        k = rope(k, pos, cfg.rope_theta)
-    # Pin head-sharded layouts on a mesh (identity without one).
-    q = constrain(q, "attn_q")
-    k = constrain(k, "attn_kv")
-    v = constrain(v, "attn_kv")
+        src = x if kv_x is None else kv_x
+        q = split_heads(linear(p["wq"], x, train), h, dh)         # (B,S,H,Dh)
+        k = split_heads(linear(p["wk"], src, train), hk, dh)      # (B,S|T,Hk,Dh)
+        v = split_heads(linear(p["wv"], src, train), hk, dh)
+        if "qn" in p:
+            q = rmsnorm(p["qn"], q, cfg.norm_eps)
+            k = rmsnorm(p["kn"], k, cfg.norm_eps)
+        if kv_x is None:                                    # no RoPE on cross-attention
+            q = rope(q, pos, cfg.rope_theta)
+            k = rope(k, pos, cfg.rope_theta)
+        # Pin head-sharded layouts on a mesh (identity without one).
+        q = constrain(q, "attn_q")
+        k = constrain(k, "attn_kv")
+        v = constrain(v, "attn_kv")
 
-    new_cache = ctx = None
-    if cache is not None and slot is not None:
-        nb, vtok = cache["k"].shape[0], cache["k"].shape[1]
-        # Explicit flat write index; padding rows go to the dump row nb*vtok.
-        dump = torch.full_like(pos, nb * vtok)
-        widx = torch.where(slot < nb, slot * vtok + pos, dump)
-        ck = _flat_write(cache["k"], k[0], widx)
-        cv = _flat_write(cache["v"], v[0], widx)
-        new_cache = {"k": ck, "v": cv}
-        ctx = _flat_context(cfg, q, ck, cv, slot, pos, is_global, x.dtype)
-    elif cache is not None and torch.as_tensor(cache_len).ndim == 0:
-        n_past = int(cache_len)
-        start = torch.full((b,), n_past, dtype=torch.long)
-        ck = write_rows(cache["k"], k, start)
-        cv = write_rows(cache["v"], v, start)
-        new_cache = {"k": ck, "v": cv}
-        k, v = ck, cv
-        kpos = torch.arange(k.shape[1], device=x.device)
-        valid = _windowed(cfg, kpos <= n_past, kpos, n_past, is_global)
-        mask = valid[None, None, None, None, :]             # (1,1,1,1,T)
-    elif cache is not None:
-        ck = write_rows(cache["k"], k, cache_len)
-        cv = write_rows(cache["v"], v, cache_len)
-        new_cache = {"k": ck, "v": cv}
-        k, v = ck, cv
-        kpos = torch.arange(k.shape[1], device=x.device)[None, None, :]
-        qabs = (pos if pos.ndim == 2 else pos[None, :].expand(b, s))[:, :, None]
-        valid = _windowed(cfg, kpos <= qabs, kpos, qabs, is_global)   # (B,S,T)
-        mask = valid[:, None, None, :, :]                   # (B,1,1,S,T)
-    elif causal and kv_x is None:
-        qpos, kpos = pos[:, None], pos[None, :]
-        mask = _windowed(cfg, kpos <= qpos, kpos, qpos, is_global)[None, None, None]
-    else:
-        mask = None
+        new_cache = ctx = None
+        if cache is not None and slot is not None:
+            nb, vtok = cache["k"].shape[0], cache["k"].shape[1]
+            # Explicit flat write index; padding rows go to the dump row nb*vtok.
+            dump = torch.full_like(pos, nb * vtok)
+            widx = torch.where(slot < nb, slot * vtok + pos, dump)
+            ck = _flat_write(cache["k"], k[0], widx)
+            cv = _flat_write(cache["v"], v[0], widx)
+            new_cache = {"k": ck, "v": cv}
+            ctx = _flat_context(cfg, q, ck, cv, slot, pos, is_global, x.dtype)
+        elif cache is not None and torch.as_tensor(cache_len).ndim == 0:
+            n_past = int(cache_len)
+            start = torch.full((b,), n_past, dtype=torch.long)
+            ck = write_rows(cache["k"], k, start)
+            cv = write_rows(cache["v"], v, start)
+            new_cache = {"k": ck, "v": cv}
+            k, v = ck, cv
+            kpos = torch.arange(k.shape[1], device=x.device)
+            valid = _windowed(cfg, kpos <= n_past, kpos, n_past, is_global)
+            mask = valid[None, None, None, None, :]             # (1,1,1,1,T)
+        elif cache is not None:
+            ck = write_rows(cache["k"], k, cache_len)
+            cv = write_rows(cache["v"], v, cache_len)
+            new_cache = {"k": ck, "v": cv}
+            k, v = ck, cv
+            kpos = torch.arange(k.shape[1], device=x.device)[None, None, :]
+            qabs = (pos if pos.ndim == 2 else pos[None, :].expand(b, s))[:, :, None]
+            valid = _windowed(cfg, kpos <= qabs, kpos, qabs, is_global)   # (B,S,T)
+            mask = valid[:, None, None, :, :]                   # (B,1,1,S,T)
+        elif causal and kv_x is None:
+            qpos, kpos = pos[:, None], pos[None, :]
+            mask = _windowed(cfg, kpos <= qpos, kpos, qpos, is_global)[None, None, None]
+        else:
+            mask = None
 
-    # Scores, softmax and the weighted sum run in float64 and the context is
-    # rounded once to x's dtype.  The policies and the prefix cache batch a
-    # token's query with different neighbours (T flat tokens, B x C chunk
-    # rows, a whole prompt over its own keys), and on the GPU the float32
-    # batched matmuls pick their reduction order by those shapes: a token's
-    # context then moves by an ulp between layouts, enough to move an int8
-    # activation code downstream and, over many layers, a greedy token.  The
-    # float64 results differ far below a float32 ulp, so rounding them once
-    # gives every layout the same bits with high probability (not
-    # certainty: a float64 value within its own error of a float32 rounding
-    # boundary can still round either way).
-    if ctx is None:
-        ctx = context(cfg, q, k, v, mask, x.dtype)
-    out = linear(p["wo"], ctx.reshape(x.shape[0], x.shape[1], h * dh), train)
-    if return_kv:
-        return out, (k, v)
-    return out, new_cache
+        # Scores, softmax and the weighted sum run in float64 and the context is
+        # rounded once to x's dtype.  The policies and the prefix cache batch a
+        # token's query with different neighbours (T flat tokens, B x C chunk
+        # rows, a whole prompt over its own keys), and on the GPU the float32
+        # batched matmuls pick their reduction order by those shapes: a token's
+        # context then moves by an ulp between layouts, enough to move an int8
+        # activation code downstream and, over many layers, a greedy token.  The
+        # float64 results differ far below a float32 ulp, so rounding them once
+        # gives every layout the same bits with high probability (not
+        # certainty: a float64 value within its own error of a float32 rounding
+        # boundary can still round either way).
+        if ctx is None:
+            ctx = context(cfg, q, k, v, mask, x.dtype)
+        out = linear(p["wo"], ctx.reshape(x.shape[0], x.shape[1], h * dh), train)
+        if return_kv:
+            return out, (k, v)
+        return out, new_cache
 
 
 def _flat_context(cfg, q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,

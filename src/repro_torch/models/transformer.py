@@ -39,6 +39,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.obs import trace as obs_trace
 from repro_torch.utils.act_sharding import constrain, is_dtensor, unshard
 
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
@@ -228,7 +229,8 @@ def _layers(cfg, params: dict, x: torch.Tensor, cache: dict | None,
         new.append(nc)
     if cache is None:
         return x, aux, None
-    return x, aux, {name: torch.stack([nc[name] for nc in new]) for name in new[0]}
+    with obs_trace.span("kv.stack"):
+        return x, aux, {name: torch.stack([nc[name] for nc in new]) for name in new[0]}
 
 
 def _head(cfg, params: dict, x: torch.Tensor) -> torch.Tensor:

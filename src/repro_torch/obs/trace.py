@@ -2,7 +2,8 @@
 as Chrome/Perfetto ``trace_event`` JSON.  A copy of the reference's
 ``repro/obs/trace.py`` with the same on-disk formats (``OBS_TRACE`` v1,
 ``OBS_TRACE_STREAM`` v1), so each package reads and validates the other's
-files; only :func:`step_annotation` differs (a ``torch.profiler`` range).
+files; what differs: :func:`span` and :func:`step_annotation` (``torch.profiler``
+ranges inside the program) and the tracer's clock anchor (``unix_ns``).
 
 Two recorders share one interface:
 
@@ -81,6 +82,7 @@ directly in ``chrome://tracing`` / https://ui.perfetto.dev.
 from __future__ import annotations
 
 import collections
+import contextlib
 import hashlib
 import json
 import os
@@ -411,8 +413,23 @@ class EventTracer:
 
     def __init__(self, clock=time.perf_counter, sink=None):
         self._clock = clock
-        self._t0 = clock()
+        self._rebase()
         self.sink = MemorySink() if sink is None else sink
+
+    def _rebase(self):
+        self._t0 = self._clock()
+        # (perf_counter_ns, time_ns) read together: maps the epoch onto Unix
+        # time, the clock of a ``torch.profiler`` trace.  Kept in memory only,
+        # never in a saved document or a stream header.
+        self._anchor = (time.perf_counter_ns(), time.time_ns())
+
+    def unix_ns(self, ts_us: float) -> int:
+        """An event's ``ts`` (microseconds from the epoch) in Unix
+        nanoseconds, for the default ``time.perf_counter`` clock: on the
+        host clock of a ``torch.profiler`` trace, whose ranges it then lines
+        up with to the anchor's precision."""
+        perf_ns, unix_ns = self._anchor
+        return unix_ns + round((self._t0 + ts_us * 1e-6) * 1e9) - perf_ns
 
     @property
     def events(self) -> list:
@@ -425,7 +442,7 @@ class EventTracer:
         ``ServingEngine.reset_run_stats`` so warm-up never pollutes the
         steady-state trace.  A streaming sink truncates its on-disk
         segments; a ring/memory sink clears."""
-        self._t0 = self._clock()
+        self._rebase()
         self.sink.reset()
 
     # -- emit primitives -----------------------------------------------------
@@ -750,21 +767,60 @@ def load_any(path: str) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# torch.profiler alignment hook
+# torch.profiler ranges: spans inside the program, the step annotation
 # ---------------------------------------------------------------------------
 
 STEP_RANGE = "tsar_engine_step"
+SPAN_PREFIX = "tsar."
+
+_NO_RANGE = contextlib.nullcontext()
+# Set by :func:`spans` around an engine step, never by code the step runs.
+_spans_on = False
+
+
+def _range(name: str):
+    """A ``record_function`` range named ``name`` while a profiler records,
+    else a shared no-op context (no range object is made)."""
+    import torch
+
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_RANGE
+
+
+def span(name: str):
+    """Context manager marking one layer of the program as a
+    ``torch.profiler`` range named ``tsar.<name>``: the host time inside
+    it, and the device time of the kernels launched inside it, belong to
+    that layer (the innermost open range).  Off (outside :func:`spans`) it
+    costs one read of a module-level switch and returns a shared no-op
+    context; on while no profiler records, one more call."""
+    if not _spans_on:
+        return _NO_RANGE
+    return _range(SPAN_PREFIX + name)
+
+
+@contextlib.contextmanager
+def spans():
+    """Turn :func:`span` on for the body; the previous setting returns
+    after it.  The engine wraps a step in it when built with
+    ``profiler_annotations=True``."""
+    global _spans_on
+    prev, _spans_on = _spans_on, True
+    try:
+        yield
+    finally:
+        _spans_on = prev
 
 
 def step_annotation(step_num: int):
-    """Context manager marking one engine step as a ``torch.profiler`` range
-    named ``tsar_engine_step#<step_num>`` (torch's own ``ProfilerStep#<n>``
-    spelling: a ``record_function`` args string does not reach the trace),
-    so a device trace captured with ``torch.profiler.profile(...)`` lines up
-    with the engine's step records, the counterpart of the reference's
+    """Context manager marking one engine step's model call as a
+    ``torch.profiler`` range named ``tsar_engine_step#<step_num>`` (torch's
+    own ``ProfilerStep#<n>`` spelling: a ``record_function`` args string
+    does not reach the trace), so a device trace captured with
+    ``torch.profiler.profile(...)`` lines up with the engine's step
+    records, the counterpart of the reference's
     ``jax.profiler.StepTraceAnnotation``.  Kernels launched inside the
-    range are its device time.  Outside a profiler it costs one
-    record-function call."""
-    import torch
-
-    return torch.profiler.record_function(f"{STEP_RANGE}#{int(step_num)}")
+    range and outside every :func:`span` are its own device time.  Outside
+    a profiler it is a no-op context."""
+    return _range(f"{STEP_RANGE}#{int(step_num)}")

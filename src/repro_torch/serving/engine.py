@@ -38,8 +38,12 @@ Observability, as in the reference: ``tracer=`` records the run
 (``obs.trace.EventTracer``; ``flight_recorder=True`` or a capacity attaches
 a ring-buffered one), ``incidents=`` attaches an
 ``obs.incident.IncidentMonitor``, and ``profiler_annotations=True`` wraps
-each step's model call in ``obs.trace.step_annotation`` for
-``torch.profiler``.  None of them changes a token or a counter.
+each step's model call in ``obs.trace.step_annotation`` and turns on the
+``obs.trace.span`` ranges inside the step for ``torch.profiler``.  None of
+them changes a token or a counter.  Two counters are always kept, one
+``time.perf_counter`` each a step: ``step_enqueue_s`` (the model calls'
+starts to the starts of their synchronizes) and ``step_host_s`` (wall time
+in ``step()`` outside the model calls and their synchronizes).
 """
 from __future__ import annotations
 
@@ -240,9 +244,11 @@ def _chunk_call(cfg, params, pools, table, writers, tokens, pos, lengths, emit_i
 
 
 def _flat_call(cfg, params, pools, table, writers, tokens, slot, pos, emit_row):
-    view = model_zoo.gather_cache_view(pools, table)
+    with obs_trace.span("kv.gather"):
+        view = model_zoo.gather_cache_view(pools, table)
     sel, view = model_zoo.flat_step(cfg, params, tokens, slot, pos, view, emit_row)
-    pools = model_zoo.scatter_cache_view(pools, writers, view)
+    with obs_trace.span("kv.scatter"):
+        pools = model_zoo.scatter_cache_view(pools, writers, view)
     return sel, pools
 
 
@@ -333,7 +339,7 @@ class ServingEngine:
             tracer = obs_trace.EventTracer(sink=obs_trace.RingSink(cap))
         self.tracer = NULL_TRACER if tracer is None else tracer
         # Each model call inside a ``torch.profiler`` range named by
-        # ``obs.trace.step_annotation``.
+        # ``obs.trace.step_annotation``, the step's ``obs.trace.span``s on.
         self._profile_steps = bool(profiler_annotations)
         self._phase: dict[int, str] = {}
         self.sched.tracer = self.tracer
@@ -354,6 +360,10 @@ class ServingEngine:
         self._t_prefill = t_step.labels(phase="prefill")
         self._t_decode = t_step.labels(phase="decode")
         self._c_steps = reg.counter("steps", "engine steps")
+        self._c_enqueue = reg.counter(
+            "step_enqueue_s", "wall seconds from model calls' starts to their synchronizes")
+        self._c_host = reg.counter(
+            "step_host_s", "wall seconds in engine steps outside model calls and synchronizes")
         self._c_decode_tokens = reg.counter(
             "decode_tokens", "tokens emitted by pure-decode steps")
         self._c_total_tokens = reg.counter("total_tokens", "all emitted tokens")
@@ -404,6 +414,8 @@ class ServingEngine:
             "max_step_tokens": _peak(self._g_step_tokens),
         })
         self.stats.bind("rejections", *_cv(self._c_rejections))
+        self.stats.bind("step_enqueue_s", *_cv(self._c_enqueue))
+        self.stats.bind("step_host_s", *_cv(self._c_host))
         if prefix_cache:
             # The keys exist whenever the cache was requested (at zero under
             # ``whole``) and never otherwise.
@@ -526,8 +538,9 @@ class ServingEngine:
             return fn(*args)
 
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with obs_trace.span("sync"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
     def _prefill_slot(self, i: int, st: SlotState):
         """Whole-prompt prefill of one slot through the paged cache.  The
@@ -541,10 +554,11 @@ class ServingEngine:
         if cfg.family == "encdec":
             batch["frames"] = torch.zeros((1, cfg.enc_seq, cfg.d_model),
                                           dtype=torch.float32, device=self.device)
+        tables = self._tables(self.kv.max_blocks)
         t0 = time.perf_counter()
         sel, self.kv.pools = self._planned(_whole_prefill_call, self.cfg, self.params,
-                                           self.kv.pools, *self._tables(self.kv.max_blocks),
-                                           batch, i)
+                                           self.kv.pools, *tables, batch, i)
+        self._c_enqueue.inc(time.perf_counter() - t0)
         self._sync()
         dt = time.perf_counter() - t0
         self._t_prefill.inc(dt)
@@ -631,7 +645,16 @@ class ServingEngine:
         ``whole``), then one flat (``flat``) or rectangular (``chunked``,
         ``whole``) prefill/decode call.  Returns False when there was
         nothing to do."""
-        self._admit()
+        if not self._profile_steps:
+            return self._step()
+        with obs_trace.spans():
+            return self._step()
+
+    def _step(self) -> bool:
+        t_in = time.perf_counter()
+        model0 = self._t_prefill.value + self._t_decode.value
+        with obs_trace.span("admit"):
+            self._admit()
         flat = self.policy == "flat"
 
         def _plan():
@@ -639,14 +662,21 @@ class ServingEngine:
                 return self.sched.plan_flat(self._slots, self.kv, self.token_budget)
             return self.sched.plan(self._slots, self.kv)
 
-        plan = _plan()
-        while isinstance(plan, Preempt):
-            self._preempt(plan.slot)
+        with obs_trace.span("plan"):
             plan = _plan()
+            while isinstance(plan, Preempt):
+                self._preempt(plan.slot)
+                plan = _plan()
         if plan is None:
             return False
 
-        tables = self._tables(plan.view_blocks)
+        with obs_trace.span("upload"):
+            tables = self._tables(plan.view_blocks)
+            if flat:
+                call, rows = _flat_call, (plan.tokens, plan.slot, plan.pos, plan.emit_row)
+            else:
+                call, rows = _chunk_call, (plan.tokens, plan.pos, plan.lengths, plan.emit_idx)
+            rows = [self._to_device(a) for a in rows]
         step_no = self._c_steps.value
         # planned = the rows the step's matmuls multiply (flat: T;
         # rectangular: the padded B*C); realized/planned is the step-budget
@@ -656,20 +686,14 @@ class ServingEngine:
                else contextlib.nullcontext())
         t0 = time.perf_counter()
         with ann:
-            if flat:
-                sel, self.kv.pools = self._planned(
-                    _flat_call, self.cfg, self.params, self.kv.pools, *tables,
-                    self._to_device(plan.tokens), self._to_device(plan.slot),
-                    self._to_device(plan.pos), self._to_device(plan.emit_row))
-            else:
-                sel, self.kv.pools = self._planned(
-                    _chunk_call, self.cfg, self.params, self.kv.pools, *tables,
-                    self._to_device(plan.tokens), self._to_device(plan.pos),
-                    self._to_device(plan.lengths), self._to_device(plan.emit_idx))
+            sel, self.kv.pools = self._planned(call, self.cfg, self.params, self.kv.pools,
+                                               *tables, *rows)
+            t_sync = time.perf_counter()
             self._sync()
         dt = time.perf_counter() - t0
 
         self._c_steps.inc()
+        self._c_enqueue.inc(t_sync - t0)
         self._c_planned.inc(planned)
         self._c_realized.inc(plan.real_tokens)
         self._g_step_tokens.set(plan.real_tokens)
@@ -696,34 +720,40 @@ class ServingEngine:
 
         toks = None
         if plan.emit.any():
-            temps = np.array([
-                self._slots[i].req.temperature if plan.emit[i] else 0.0
-                for i in range(self.slots)], np.float32)
-            toks = self._sample(sel, temps)
-        for i in range(self.slots):
-            st = self._slots[i]
-            if st is None or plan.n_real[i] == 0:
-                continue
-            self.kv.lengths[i] += int(plan.n_real[i])
-            advanced = plan.advances_prefill(i)
-            if advanced:
-                if tr.enabled:
-                    tr.mark(st.req.uid, "prefill_chunk",
-                            n=int(plan.n_real[i]), start=st.cursor)
-                st.cursor += int(plan.n_real[i])
-            if plan.emit[i]:
-                self._emit_token(i, st, int(toks[i]))
-            if advanced and not st.prefilling and self._slots[i] is not None:
-                # Prompt fully in cache and the request still live: register
-                # its full blocks now, so requests sharing the prefix hit it
-                # while this one decodes.  After the emit: a request that
-                # finished on its first token was registered at finish.
-                self._register_prefix(i, st)
-        self._sync_prefix_stats()
-        if self.incidents is not None:
-            ev = int(self.stats["prefix_evictions"]) if self.prefix is not None else 0
-            self.incidents.step_tick(evictions=max(0, ev - self._evictions_seen))
-            self._evictions_seen = ev
+            with obs_trace.span("sample"):
+                temps = np.array([
+                    self._slots[i].req.temperature if plan.emit[i] else 0.0
+                    for i in range(self.slots)], np.float32)
+                toks = self._sample(sel, temps)
+        with obs_trace.span("emit"):
+            for i in range(self.slots):
+                st = self._slots[i]
+                if st is None or plan.n_real[i] == 0:
+                    continue
+                self.kv.lengths[i] += int(plan.n_real[i])
+                advanced = plan.advances_prefill(i)
+                if advanced:
+                    if tr.enabled:
+                        tr.mark(st.req.uid, "prefill_chunk",
+                                n=int(plan.n_real[i]), start=st.cursor)
+                    st.cursor += int(plan.n_real[i])
+                if plan.emit[i]:
+                    self._emit_token(i, st, int(toks[i]))
+                if advanced and not st.prefilling and self._slots[i] is not None:
+                    # Prompt fully in cache and the request still live: register
+                    # its full blocks now, so requests sharing the prefix hit it
+                    # while this one decodes.  After the emit: a request that
+                    # finished on its first token was registered at finish.
+                    self._register_prefix(i, st)
+            self._sync_prefix_stats()
+            if self.incidents is not None:
+                ev = int(self.stats["prefix_evictions"]) if self.prefix is not None else 0
+                self.incidents.step_tick(evictions=max(0, ev - self._evictions_seen))
+                self._evictions_seen = ev
+        # Every model call of the step (whole prefills in ``_admit`` too)
+        # added its wall seconds to the phase counters.
+        model = self._t_prefill.value + self._t_decode.value - model0
+        self._c_host.inc(time.perf_counter() - t_in - model)
         return True
 
     def _preempt(self, i: int):

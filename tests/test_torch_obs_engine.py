@@ -12,9 +12,11 @@ Then the engine options (``flight_recorder``, ``profiler_annotations``,
 warm-up incidents) and ``launch/serve.py``'s observability flags, whose
 files the reference's readers must accept.
 """
+import contextlib
 import json
 import os
 import tempfile
+import time
 
 import jax
 import numpy as np
@@ -197,6 +199,112 @@ def test_profiler_annotations_mark_every_step(storm):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         plain.run(requests(Request, [5, 9, 3], 3, seed=1))
     assert not any(e.name.startswith(trace.STEP_RANGE) for e in prof.events())
+
+
+# The spans of a step (``obs.trace.span``): inside the model call, and the
+# engine's host work beside it.
+MODEL_SPANS = ("tsar.attn", "tsar.proj", "tsar.kv.gather", "tsar.kv.scatter", "tsar.kv.write",
+               "tsar.kv.stack", "tsar.sync")
+HOST_SPANS = ("tsar.admit", "tsar.plan", "tsar.upload", "tsar.sample", "tsar.emit")
+
+
+def _profiled_run(cfg, params, annotations: bool, profiled: bool = True):
+    """The engine (an ``EventTracer`` attached) over three requests, under a
+    CPU ``torch.profiler`` when ``profiled``: (engine, requests, the
+    profiler's (name, start_ns, end_ns) ranges, the wall seconds of every
+    ``step()`` call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    engine = ServingEngine(cfg, params, device="cpu", profiler_annotations=annotations,
+                           tracer=trace.EventTracer())
+    reqs = requests(Request, [5, 9, 3], 3, seed=1)
+    for r in reqs:
+        engine.submit(r)
+    walls, ranges = [], []
+    prof = profile(activities=[ProfilerActivity.CPU])
+    with prof if profiled else contextlib.nullcontext():
+        while engine.busy:
+            t = time.perf_counter()
+            engine.step()
+            walls.append(time.perf_counter() - t)
+    if profiled:
+        ranges = [(ev.name(), ev.start_ns(), ev.end_ns())
+                  for ev in prof.profiler.kineto_results.events()
+                  if ev.name().startswith(("tsar.", trace.STEP_RANGE))]
+    return engine, reqs, ranges, walls
+
+
+@pytest.fixture(scope="module")
+def spans_runs(storm):
+    """Spans on and off under the profiler, and an untraced run."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cfg, params = storm["cfg"], storm["params"]
+        return {"on": _profiled_run(cfg, params, True),
+                "off": _profiled_run(cfg, params, False),
+                "untraced": _profiled_run(cfg, params, False, profiled=False)}
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_span_makes_no_range_unless_on_and_recording():
+    from torch.profiler import ProfilerActivity, profile
+
+    assert trace.span("attn") is trace._NO_RANGE
+    with trace.spans():
+        assert trace.span("attn") is trace._NO_RANGE           # no profiler records
+        with profile(activities=[ProfilerActivity.CPU]):
+            with trace.span("attn") as rng:
+                assert rng is not None
+    assert trace.span("attn") is trace._NO_RANGE
+
+
+def _inside(inner, outers) -> bool:
+    return any(s <= inner[1] and inner[2] <= e for _, s, e in outers)
+
+
+def test_spans_nest_inside_the_step(spans_runs):
+    engine, _, ranges, _ = spans_runs["on"]
+    by = {}
+    for r in ranges:
+        by.setdefault(r[0].split("#")[0], []).append(r)
+    assert set(by) == set(MODEL_SPANS + HOST_SPANS) | {trace.STEP_RANGE}
+    assert len(by[trace.STEP_RANGE]) == engine.stats["steps"]
+    assert all(_inside(r, by["tsar.attn"]) for r in by["tsar.kv.write"])
+    assert any(_inside(r, by["tsar.attn"]) for r in by["tsar.proj"])
+    assert not all(_inside(r, by["tsar.attn"]) for r in by["tsar.proj"])   # the MLP's
+    for name in MODEL_SPANS:
+        assert all(_inside(r, by[trace.STEP_RANGE]) for r in by[name]), name
+    for name in HOST_SPANS:
+        assert not any(_inside(r, by[trace.STEP_RANGE]) for r in by[name]), name
+
+
+def test_spans_off_record_nothing_and_change_no_token_or_counter(spans_runs):
+    assert spans_runs["off"][2] == []
+    base_engine, base_reqs = spans_runs["untraced"][:2]
+    for label in ("on", "off"):
+        engine, reqs = spans_runs[label][:2]
+        assert [r.out_tokens for r in reqs] == [r.out_tokens for r in base_reqs]
+        assert engine_counters(engine) == engine_counters(base_engine)
+
+
+@pytest.mark.parametrize("label", ["on", "off", "untraced"])
+def test_step_enqueue_and_host_within_the_step_wall(spans_runs, label):
+    engine, _, _, walls = spans_runs[label]
+    enqueue, host = engine.stats["step_enqueue_s"], engine.stats["step_host_s"]
+    assert enqueue > 0 and host > 0
+    assert enqueue <= engine.stats["prefill_s"] + engine.stats["decode_s"]
+    assert enqueue + host <= sum(walls)
+
+
+def test_tracer_anchor_puts_steps_on_the_profiler_clock(spans_runs):
+    engine, _, ranges, _ = spans_runs["on"]
+    starts = {int(n.split("#")[1]): s for n, s, _ in ranges if n.startswith(trace.STEP_RANGE)}
+    steps = [e for e in engine.tracer.events if e["ph"] == "X" and e["name"] == "step"]
+    assert len(steps) == len(starts) == engine.stats["steps"]
+    for ev in steps:
+        assert abs(engine.tracer.unix_ns(ev["ts"]) - starts[ev["args"]["step"]]) < 1e6
 
 
 def test_serve_cli_writes_files_the_reference_accepts(tmp_path, capsys):
