@@ -8,7 +8,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 1. the card's name and power limit (``nvidia-smi``), its properties beside
    the planner's H100 constants (``repro_torch.core.hw``);
-2. build the three CUDA libraries from ``src/repro_torch/csrc`` (one
+2. build the four CUDA libraries from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, started together) and print the build time and
    ``nvcc``'s register report;
 3. ``tsar_matmul`` kernel phase: the kernel against its plain PyTorch
@@ -52,6 +52,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
    and (40, 36) blocks, two calls ``torch.equal``; times beside the
    live-block bound, the padded kernel on the same matrix and
    ``torch._int_mm``; the launch structure (4 calls -> 4 device kernels);
+6b. ``flat_attn`` kernel phase (``csrc/flat_attn.cu``, the flat step's
+   float64 attention core; it replaces no TPU kernel): ``bitnet-2b-4t``'s
+   heads over the benchmark cell's (48, 2048) float32 cache view, at T 48
+   (a decode row in every slot) and T 304 (47 decode rows, a 256-row prompt
+   chunk of slot 47 at positions 600-855, one padding row), the decode
+   rows' positions ShareGPT-like live lengths; through the route
+   ``layers.flat_context``: every real row within one float32 ulp of the
+   plain version ``layers._flat_context`` on the same tensors, padding rows
+   zero, two calls equal, one launch a call; times beside the bound (live
+   K/V rows read once over HBM bandwidth, or the float64 operations over
+   the float64 peak) and the plain version; the launch structure (4 calls
+   -> 4 device kernels, nothing else);
 7. family kernel phase: ``tsar_matmul`` at every (K, M) of the
    projections that run it in full-width ``deepseek-moe-16b`` (attention,
    shared experts), ``mamba2-780m`` (``in_proj``, ``out_proj``) and
@@ -65,7 +77,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    keep every block live, so the plan names only planes kernels and
    ``tsar_matmul`` must launch 210 x steps times; 8 requests finish, every
    logit is finite; a real ``w_gate`` projection at N=20 equals its plain
-   version;
+   version.  In every engine path (``run_path``) the flat attention kernel
+   (``csrc/flat_attn.cu``) launches once a layer in every flat step;
 8b. workload phase: on the same params, each of the seven workload
    presets of ``repro_torch.workloads`` (steady, bursty, shared-prefix,
    decode-heavy, preemption-storm, eviction-pressure, mixed) at full size
@@ -301,6 +314,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
+F64_OPS_PER_S = 67e12          # float64 on the tensor cores (DFMA alone: 34e12)
 
 ARCH = "bitnet-2b-4t"
 MOE_ARCH, SSM_ARCH, HYBRID_ARCH = "deepseek-moe-16b", "mamba2-780m", "hymba-1.5b"
@@ -312,7 +326,7 @@ FAMILY_NS = (3, 4, 20, 64, 128)
 # encoder's 1500 frame rows (whisper's enc_seq), llava's 2880 patch
 # positions + a 128-token prompt.
 LARGE_NS = (4, 20, 1500, 3008)
-KERNEL_SOURCES = ("tsar_matmul", "tsar_sparse", "tsar_lut")
+KERNEL_SOURCES = ("tsar_matmul", "tsar_sparse", "tsar_lut", "flat_attn")
 # Registry kernel -> the launch counter of its hand-written kernel
 # (``memory_lut`` and ``dense`` are plain PyTorch and launch none).
 COUNTER_OF = {"tsar_mxu": "tsar_matmul", "tsar_lut": "tsar_lut",
@@ -592,12 +606,12 @@ def kernel_phase(torch, cfg) -> dict:
     return {"rows": rows, "max_abs_err": max_err}
 
 
-def launch_structure(torch, name: str, call, calls: int = 4) -> None:
+def launch_structure(torch, name: str, call, calls: int = 4, symbol: str = "") -> None:
     """torch.profiler over two cycles of ``calls`` eager calls of ``call``
-    (one wrapper call of kernel ``name`` at N=4 x 2560 x 6912), one trace.
-    The second cycle must run exactly one kernel per call (the cluster
-    launch), ``<name>_kernel``, and nothing else: no memset, no epilogue
-    kernel.  The first cycle runs while device tracing starts, which can
+    (one wrapper call of kernel ``name``, e.g. at N=4 x 2560 x 6912), one
+    trace.  The second cycle must run exactly one kernel per call (the
+    cluster launch), ``symbol`` (by default ``<name>_kernel``), and nothing
+    else: no memset, no epilogue kernel.  The first cycle runs while device tracing starts, which can
     leave a kernel event unrecorded: its device ops are printed and must be
     a subset of the second cycle's (no memset, no other kernel name), so an
     op launched only on the first calls after a pause still fails."""
@@ -621,7 +635,8 @@ def launch_structure(torch, name: str, call, calls: int = 4) -> None:
                 if device[i][0] - device[i - 1][0] >= 10_000.0), 0)
     first = [k for _, k in device[:cut]]
     device = [k for _, k in device[cut:]]
-    kernels = [k for k in device if f"{name}_kernel" in k]
+    symbol = symbol or f"{name}_kernel"
+    kernels = [k for k in device if symbol in k]
     memsets = [k for k in device if "memset" in k.lower()]
     _require(len(kernels) == calls and len(device) == calls and not memsets,
              f"launch structure: {calls} calls ran {len(device)} device ops "
@@ -631,7 +646,7 @@ def launch_structure(torch, name: str, call, calls: int = 4) -> None:
              f"not a subset of the second cycle's: {first}")
     print(f"{name} launch structure: {calls} calls -> {len(kernels)} device kernels "
           f"({kernels[0][:60]}...), 0 memsets, no other device op; first cycle "
-          f"{len(first)} ops, all {name}_kernel", flush=True)
+          f"{len(first)} ops, all {symbol}", flush=True)
 
 
 def sparse_kernel_phase(torch, cfg) -> dict:
@@ -943,6 +958,106 @@ def compact_kernel_phase(torch, cfg) -> dict:
     return {"rows": rows, "max_abs_err": max_err}
 
 
+def flat_live_positions(rng, n: int, vtok: int):
+    """``n`` ShareGPT-like live lengths, as the benchmark cell serves: a
+    prompt (lognormal, median 96, sigma 1, in [8, 1024]) plus a uniform
+    share of an output (lognormal, median 256, sigma 0.8, in [16, 1023]),
+    within [1, vtok)."""
+    prompt = rng.lognormal(math.log(96), 1.0, n).clip(8, 1024)
+    out = rng.lognormal(math.log(256), 0.8, n).clip(16, 1023)
+    return (prompt + rng.random(n) * out).astype(int).clip(1, vtok - 1)
+
+
+def flat_attn_bound(slot, pos, cfg, nb: int) -> tuple[float, str]:
+    """Least time (ms) for one ``flat_attn`` call: the larger of the bytes
+    it must move (each slot's K and V rows up to its last row's position,
+    read once; float32 queries and output, 8*T*H*Dh) over HBM bandwidth and
+    its float64 operations (a score and a weighted-sum FMA per key, head
+    and d of each real row: 4*H*Dh*(pos+1)) over the float64 peak."""
+    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    real = slot < nb
+    keys = {}
+    for s, p in zip(slot[real].tolist(), pos[real].tolist()):
+        keys[s] = max(keys.get(s, 0), p + 1)
+    nbytes = sum(keys.values()) * hk * dh * 4 * 2 + 2 * len(slot) * h * dh * 4
+    ops = 4 * h * dh * int((pos[real] + 1).sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F64_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_ops_per_call(torch, call) -> int:
+    """Device operations (kernels, copies, sets) of one eager call, by
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def flat_attn_kernel_phase(torch, cfg) -> dict:
+    import numpy as np
+
+    from repro_torch.kernels import flat_attn
+    from repro_torch.models import layers
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    nb, vtok, chunk = 48, 2048, 256          # the bitnet-chat-b48 cell's slots, max_len, chunk
+    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ck, cv = (torch.randn((nb, vtok, hk, dh), generator=gen, device=dev) for _ in range(2))
+    rows, max_err, calls = {}, 0.0, {}
+    for t in (nb, nb + chunk):
+        decode = flat_live_positions(rng, nb, vtok)
+        if t == nb:
+            slot_np, pos_np = np.arange(nb), decode
+        else:
+            slot_np = np.concatenate([np.arange(nb - 1), np.full(chunk, nb - 1), [nb]])
+            pos_np = np.concatenate([decode[:nb - 1], 600 + np.arange(chunk), [0]])
+        slot = torch.from_numpy(slot_np.astype(np.int64)).to(dev)
+        pos = torch.from_numpy(pos_np.astype(np.int64)).to(dev)
+        q = torch.randn((1, t, h, dh), generator=gen, device=dev)
+
+        def kernel(q=q, slot=slot, pos=pos):
+            return layers.flat_context(cfg, q, ck, cv, slot, pos, True, torch.float32)
+
+        def plain(q=q, slot=slot, pos=pos):
+            return layers._flat_context(cfg, q, ck, cv, slot, pos, True, torch.float32)
+
+        before = flat_attn.LAUNCHES["flat_attn"]
+        got = kernel()
+        _require(flat_attn.LAUNCHES["flat_attn"] == before + 1,
+                 f"flat_attn T={t}: the route did not launch the kernel once")
+        _require(torch.equal(kernel(), got), f"flat_attn T={t}: two calls on the same inputs differ")
+        real = slot < nb
+        a, b = got[0, real].cpu().numpy(), plain()[0, real].cpu().numpy()
+        diff = np.abs(a - b)
+        past = int((diff > np.spacing(np.maximum(np.abs(a), np.abs(b)))).sum())
+        _require(past == 0, f"flat_attn T={t}: {past} values past one float32 ulp of the plain "
+                 f"version (max err {diff.max():.3g})")
+        _require(not bool(got[0, ~real].any()), f"flat_attn T={t}: padding rows not zero")
+        max_err = max(max_err, float(diff.max()))
+        ms = time_graph(torch, [kernel], launches_per_replay=20)
+        plain_ms = time_eager(torch, plain)
+        b_ms, b_by = flat_attn_bound(slot_np, pos_np, cfg, nb)
+        rows[t] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "live_keys_mean": float(pos_np[slot_np < nb].mean() + 1),
+                   "plain_device_ops": device_ops_per_call(torch, plain)}
+        calls[t] = kernel
+        print(f"flat_attn_f64 T={t} over ({nb}, {vtok}) (mean {rows[t]['live_keys_mean']:.0f} "
+              f"live keys a row): within one float32 ulp (max err {diff.max():.3g}), padding "
+              f"zero, two calls equal | {ms * 1e3:.2f} us (bound {b_ms * 1e3:.2f} us, {b_by}; "
+              f"{b_ms / ms:.1%} of bound) | plain {plain_ms * 1e3:.1f} us in "
+              f"{rows[t]['plain_device_ops']} device ops", flush=True)
+    launch_structure(torch, "flat_attn", calls[nb], symbol="flat_attn_f64")
+    return {"rows": rows, "max_abs_err": max_err}
+
+
 def bitlinear_phase(torch, cfg) -> dict:
     """The layer-level path: ``freeze`` -> ``compile_plan`` ->
     ``apply_frozen`` over the seven projections of one full-width layer,
@@ -1169,7 +1284,9 @@ def launch_counts() -> dict:
 
 
 def zero_launch_counts() -> None:
-    for d in _counter_dicts():
+    from repro_torch.kernels import flat_attn
+
+    for d in _counter_dicts() + [flat_attn.LAUNCHES]:
         for key in d:
             d[key] = 0
 
@@ -1244,14 +1361,17 @@ def engine_counters(engine) -> dict:
 def run_path(torch, engine, reqs, label: str, serve=None) -> dict:
     """Serve ``reqs`` as one path: launch counts zeroed just before, read
     just after and held against the plan's prediction for the row counts
-    of every model call the run made; every sampled logit row checked
+    of every model call the run made (and ``flat_attn``'s against one
+    launch a layer in every flat step); every sampled logit row checked
     finite (and kept, for :func:`same_tokens`); every request must finish
     with its ``max_new_tokens`` tokens in ``[0, vocab)``.  The wall time of
     every pure-decode ``engine.step()`` (tracer emission included) and the
     engine's deterministic counters come back with the tokens.  ``serve``
     (a function returning the requests it served) takes the place of
     ``engine.run(reqs)``: a workload trace's replay."""
-    widths, finite, rows, last, decode_wall = [], [], {}, {}, []
+    from repro_torch.kernels import flat_attn
+
+    widths, flat_calls, finite, rows, last, decode_wall = [], [], [], {}, {}, []
     sched = engine.sched
     plan_flat, plan_rect = sched.plan_flat, sched.plan
     sample, emit, prefill_slot = engine._sample, engine._emit_token, engine._prefill_slot
@@ -1260,6 +1380,7 @@ def run_path(torch, engine, reqs, label: str, serve=None) -> dict:
         plan = plan_flat(*args, **kw)
         if hasattr(plan, "width"):
             widths.append(plan.width)
+            flat_calls.append(plan.width)
         return plan
 
     def recording_plan(*args, **kw):
@@ -1312,6 +1433,10 @@ def run_path(torch, engine, reqs, label: str, serve=None) -> dict:
              f"{label}: unrecorded model calls")
     want = predicted_launches(engine, widths, engine.stats["whole_prefills"])
     _require(launches == want, f"{label}: launches {launches}, the plan predicts {want}")
+    flat_launches = flat_attn.LAUNCHES["flat_attn"]
+    _require(flat_launches == engine.cfg.n_layers * len(flat_calls),
+             f"{label}: {flat_launches} flat_attn launches over {len(flat_calls)} flat steps "
+             f"of {engine.cfg.n_layers} layers")
     decode_steps = engine.metrics.get("decode_steps").value
     prefill_calls = engine.metrics.get("prefill_steps").value + engine.stats["whole_prefills"]
     n_tok = sum(len(r.out_tokens) for r in reqs)
@@ -1323,7 +1448,8 @@ def run_path(torch, engine, reqs, label: str, serve=None) -> dict:
            "decode_ms": engine.stats["decode_s"] / max(1, decode_steps) * 1e3,
            "prefill_ms": engine.stats["prefill_s"] / max(1, prefill_calls) * 1e3,
            "ttft_ms": pct["ttft_s"]["p50"] * 1e3, "tpot_ms": pct["tpot_s"]["p50"] * 1e3,
-           "decode_step_ms": [s * 1e3 for s in decode_wall], "counters": engine_counters(engine)}
+           "decode_step_ms": [s * 1e3 for s in decode_wall], "counters": engine_counters(engine),
+           "flat_attn_launches": flat_launches}
     print(f"{label}: {len(reqs)} requests, {engine.stats['steps']} steps "
           f"({engine.metrics.get('prefill_steps').value} with prefill, "
           f"{engine.stats['whole_prefills']} whole prefills), "
@@ -1332,7 +1458,8 @@ def run_path(torch, engine, reqs, label: str, serve=None) -> dict:
           f"{engine.throughput():.1f} tok/s over {decode_steps} pure-decode steps "
           f"({out['decode_ms']:.2f} ms/step) | prefill {out['prefill_ms']:.2f} ms per "
           f"call | TTFT p50 {out['ttft_ms']:.1f} ms, TPOT p50 {out['tpot_ms']:.2f} ms | "
-          f"row counts {out['widths']} | launches {launches} = plan's prediction", flush=True)
+          f"row counts {out['widths']} | launches {launches} = plan's prediction, flat_attn "
+          f"{flat_launches} = {engine.cfg.n_layers} x {len(flat_calls)} flat steps", flush=True)
     return out
 
 
@@ -3446,6 +3573,7 @@ def main() -> int:
     sparse = sparse_kernel_phase(torch, cfg)
     lut_res = lut_kernel_phase(torch, cfg)
     compact = compact_kernel_phase(torch, cfg)
+    flat_res = flat_attn_kernel_phase(torch, cfg)
     family_cfgs = [configs.get(a) for a in (MOE_ARCH, SSM_ARCH, HYBRID_ARCH)]
     family_kernel_phase(torch, family_cfgs)
     encdec_cfg, vlm_cfg = configs.get(ENCDEC_ARCH), configs.get(VLM_ARCH)
@@ -3455,6 +3583,7 @@ def main() -> int:
     params = init_frozen(torch, cfg, kill_blocks=False)
     flat_run = engine_phase(torch, cfg, params, profile=args.profile)
     launches = flat_run["launches"]["tsar_matmul"]
+    flat_launches = flat_run["flat_attn_launches"]
     policy_phase(torch, cfg, params, flat_run)
     prefix_runs = prefix_phase(torch, cfg, params)
     # 10a-10c. observability: the tight prefix run recorded, the step
@@ -3548,6 +3677,19 @@ def main() -> int:
                     f"shapes{per}" if layers > 1 else
                     f"one bitnet-2b-4t layer's 7 projections at N=4{per}; launches "
                     "over the bitlinear path's runs")})
+    # The flat attention kernel at one T=48 decode step of the cell's shapes
+    # (a launch a layer), and per layer at both of its shapes.
+    fl = flat_res["rows"]
+    entries.append({
+        "name": "flat_attn_f64", "route": "cuda", "source": "src/repro_torch/csrc/flat_attn.cu",
+        "replaces": "none", "launches": flat_launches, "max_abs_err": flat_res["max_abs_err"],
+        **{key: fl[48][key] * cfg.n_layers for key in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": fl[48]["bound_by"], "library_ms": None,
+        "per_layer": {f"T={t}": {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
+                                                           "bound_by", "plain_device_ops")}
+                      for t, row in fl.items()},
+        "per": (f"one T=48 decode step of the bitnet-chat-b48 cell's shapes: {cfg.n_layers} "
+                "launches over a (48, 2048) view; launches over the dense engine's run")})
     # The card again at the end: the first line is far above the tail of a
     # long log, and the limit is what every number above was taken under.
     print(gpu_line(), flush=True)

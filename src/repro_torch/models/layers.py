@@ -23,7 +23,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core import bitlinear, ternary
-from repro_torch.kernels import ops
+from repro_torch.kernels import flat_attn, ops
 from repro_torch.obs import trace as obs_trace
 from repro_torch.plan import registry
 from repro_torch.plan import runtime as plan_runtime
@@ -462,7 +462,7 @@ def attention(cfg, p: dict, x: torch.Tensor, *, pos: torch.Tensor, is_global: bo
             ck = _flat_write(cache["k"], k[0], widx)
             cv = _flat_write(cache["v"], v[0], widx)
             new_cache = {"k": ck, "v": cv}
-            ctx = _flat_context(cfg, q, ck, cv, slot, pos, is_global, x.dtype)
+            ctx = flat_context(cfg, q, ck, cv, slot, pos, is_global, x.dtype)
         elif cache is not None and torch.as_tensor(cache_len).ndim == 0:
             n_past = int(cache_len)
             start = torch.full((b,), n_past, dtype=torch.long)
@@ -505,6 +505,22 @@ def attention(cfg, p: dict, x: torch.Tensor, *, pos: torch.Tensor, is_global: bo
         if return_kv:
             return out, (k, v)
         return out, new_cache
+
+
+def flat_context(cfg, q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                 slot: torch.Tensor, pos: torch.Tensor, is_global: bool,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The flat branch's context (1, T, Hk, G, Dh): on CUDA (and meta)
+    tensors the hand-written kernel (``kernels.flat_attn``), which reads
+    each token's own slot prefix once; on CPU tensors and on a device mesh
+    (DTensors) the plain version, :func:`_flat_context`.  Both take the
+    scores, the softmax and the weighted sum in float64 and round once to
+    ``dtype``."""
+    if is_dtensor(q) or q.device.type == "cpu":
+        return _flat_context(cfg, q, ck, cv, slot, pos, is_global, dtype)
+    window = cfg.window_size if cfg.window_pattern and not is_global else 0
+    return flat_attn.flat_attn_f64(q.to(torch.float32), ck, cv, slot, pos, window=window,
+                                   softcap=cfg.attn_softcap, dtype=dtype)
 
 
 def _flat_context(cfg, q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,

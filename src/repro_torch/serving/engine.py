@@ -57,6 +57,7 @@ import torch
 
 from repro_torch.core import bitlinear, ternary
 from repro_torch.device import resolve_device
+from repro_torch.kernels import _build
 from repro_torch.models import layers, model_zoo
 from repro_torch.obs import NULL_TRACER, MetricsRegistry, StatsView
 from repro_torch.obs import trace as obs_trace
@@ -809,11 +810,17 @@ class ServingEngine:
     def warmup(self, seq_len: int | None = None) -> None:
         """Run a throwaway request over the step paths (prefill width, pure
         decode, the block-table views up to ``seq_len`` positions), then
-        :meth:`reset_run_stats`.  On the card the first call of each kernel
-        builds and loads it, so a replay's percentiles measure serving, not
-        ``nvcc``.  Needs an idle engine."""
+        :meth:`reset_run_stats`.  On the card the main path's two libraries
+        are built first, together, and the first call of each kernel loads
+        it, so a replay's percentiles measure serving, not ``nvcc``.  Needs
+        an idle engine."""
         if self.busy:
             raise RuntimeError("warmup() requires an idle engine")
+        if self.device.type == "cuda":
+            # The projections' and the flat attention's libraries: one nvcc
+            # each, at once, rather than one after another at their first
+            # launches (a checkout's first run builds them).
+            _build.build(("tsar_matmul", "flat_attn"))
         total = seq_len or (self.prefill_chunk + 3)
         # Room for the generated tokens, the headroom position and a VLM's
         # patch positions.
