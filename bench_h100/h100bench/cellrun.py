@@ -111,8 +111,9 @@ class Run:
     """What a metric's reader reads: the cell's files, the ``Drive`` (every
     request with its token stamps, the step ends), the engine (still alive
     while the readers run), the window's and the profiled slice's counter
-    deltas, and in a traced run the tracer's events, the slice's reduction,
-    the window's model FLOPs and the slice's least projection time."""
+    deltas, and in a traced run the stopped profiler of the slice, the
+    tracer's events, the slice's reduction, the window's model FLOPs and the
+    slice's least projection time."""
     cfg: dict
     cell: dict
     traffic: dict
@@ -122,6 +123,7 @@ class Run:
     setup_s: float
     counters: dict                      # the window's engine counters
     slice_counters: dict | None = None  # those of the profiled slice
+    prof: object = None                 # the slice's torch.profiler.profile
     events: list | None = None          # the tracer's events
     slice: dict | None = None           # profile.read of the slice
     flops: float | None = None          # model FLOPs of the window
@@ -263,6 +265,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, *, t_start: float,
     if trace:
         r.events = tracer.events
         if watch.s1 is not None:
+            r.prof = prof
             r.slice_counters = delta(watch.s0, watch.s1)
             r.slice = profile.read(profile.kineto_events(prof))
             r.slice_bound_s = _slice_bound(c, tracer.events, watch.first, watch.last)
@@ -281,7 +284,8 @@ def run(name: str, seed: int, seconds: float, trace: bool, *, t_start: float,
     rejected = r.counters["rejections"]
     missing = drive.missing
     # Free the program's state before the reference runs.
-    drive.engine = watch.engine = r.engine = engine = tracer = prof = None
+    drive.engine = watch.engine = r.engine = engine = tracer = None
+    watch.prof = r.prof = prof = None
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()

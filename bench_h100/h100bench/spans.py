@@ -167,20 +167,6 @@ def reduce(events) -> dict | None:
     }
 
 
-def _profiler():
-    """The stopped profiler of the run whose metrics are being read: the
-    ``prof`` of the ``cellrun.run`` call that called the reader (``Run``
-    does not carry it), or None."""
-    from h100bench import cellrun
-
-    f = sys._getframe(1)
-    while f is not None:
-        if f.f_code is cellrun.run.__code__:
-            return f.f_locals.get("prof")
-        f = f.f_back
-    return None
-
-
 _last: tuple = (None, None)      # (weak reference to a Run, its reduction)
 
 
@@ -194,8 +180,7 @@ def of(run) -> dict | None:
     ref, got = _last
     if ref is not None and ref() is run:
         return got
-    prof = _profiler()
-    got = None if prof is None else reduce(kineto_events(prof))
+    got = None if run.prof is None else reduce(kineto_events(run.prof))
     if got is not None:
         print("spans: " + json.dumps(got), file=sys.stderr, flush=True)
     _last = (weakref.ref(run), got)

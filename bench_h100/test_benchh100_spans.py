@@ -108,13 +108,28 @@ def test_device_readers_divide_by_the_slice_steps(monkeypatch):
     assert spec.reader("launches_step.chat")(None) == 1.5
 
 
+@pytest.mark.parametrize("has_prof", [True, False])
+def test_of_reduces_the_profiler_the_run_carries(monkeypatch, has_prof):
+    class Run:
+        slice = {}
+        prof = object() if has_prof else None
+
+    run = Run()
+    monkeypatch.setattr(spans, "kineto_events", lambda prof: _events() if prof is run.prof else [])
+    got = spans.of(run)
+    assert got == (spans.reduce(_events()) if has_prof else None)
+    assert spans.of(run) is got                   # once a run
+
+
 def test_readers_find_the_runs_profiler_and_its_spans(tmp_path, monkeypatch):
     """A traced run of the reduced cell on the CPU: the readers reach the
-    slice's profiler, whose events hold the program's spans, and reduce
-    them once for the five metrics.  The CPU has no device activity, so a
-    stand-in replaces the slice's reduction and the spans' result is
-    None; the steps take 10 ms of a virtual clock, so the slice of 20
-    steps fits the window however loaded the CPU is."""
+    slice's profiler through ``Run.prof``, whose events hold the program's
+    spans, and reduce them once for the five metrics.  The CPU has no
+    device activity, so a stand-in replaces the slice's reduction and the
+    spans' result is None; the steps take 10 ms of a virtual clock, so the
+    slice of 20 steps fits the window however loaded the CPU is."""
+    import torch
+
     from _benchh100_tiny import tiny_root
     from h100bench import cellrun, loadgen
     from repro_torch.serving import engine as eng
@@ -132,7 +147,18 @@ def test_readers_find_the_runs_profiler_and_its_spans(tmp_path, monkeypatch):
     monkeypatch.setattr(eng.ServingEngine, "step", timed_step)
     monkeypatch.setattr(profile, "read", lambda events: {
         "window_s": 0.2, "busy_s": 0.1, "tsar_s": 0.0, "device_ops": [], "idle_gaps": []})
-    seen = []
+    seen, carried = [], []
+    of, kineto_events = spans.of, spans.kineto_events
+
+    def of_run(run):
+        carried.append(run.prof)
+        return of(run)
+
+    def events_of(prof):
+        carried.append(prof)
+        return kineto_events(prof)
+    monkeypatch.setattr(spans, "of", of_run)
+    monkeypatch.setattr(spans, "kineto_events", events_of)
 
     def reduce(events):
         seen.append({e[0].split("#")[0] for e in events if e[0].startswith(spans.RANGES)})
@@ -142,6 +168,8 @@ def test_readers_find_the_runs_profiler_and_its_spans(tmp_path, monkeypatch):
     out = cellrun.run(name, 2**31 + 4243, 0.6, True, t_start=0.0, root=tiny_root(tmp_path),
                       device="cpu")
     assert len(seen) == 1
+    assert isinstance(carried[0], torch.profiler.profile)
+    assert all(p is carried[0] for p in carried)
     assert {"tsar.attn", "tsar.proj", "tsar.kv.write", "tsar.sync", "tsar.emit",
             "tsar_engine_step", "bench.step"} <= seen[0]
     assert not set(READERS[:3]) & set(out["metrics"])

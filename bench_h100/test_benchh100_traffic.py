@@ -102,3 +102,43 @@ def test_lengths_within_their_limits():
 def test_any_integer_seed():
     for seed in (0, -5, 2**40 + 3):
         assert _trace("code-completion", seed)
+
+
+@pytest.mark.parametrize("seed", [SEED, 2**40 + 3])
+def test_more_requests_keep_the_first_400(seed):
+    """Raising a closed loop's ``requests`` appends work: the first 400
+    requests (lengths, order, token ids, the first wave's shares) are those
+    that 400 gave, so no run that fitted 400 serves other work."""
+    tr = spec.traffic("chat-closed")
+    assert tr["requests"] > 400
+    short = traffic_lib.build({**tr, "requests": 400}, 128256, seed, 51.0)
+    long = traffic_lib.build(tr, 128256, seed, 51.0)
+    assert len(long) == tr["requests"]
+    for x, y in zip(short, long):
+        assert (x.uid, x.max_new, x.due) == (y.uid, y.max_new, y.due)
+        assert np.array_equal(x.prompt, y.prompt)
+
+
+def _taken(items, clients: int, steps: int) -> int:
+    """Requests a closed loop of ``clients`` slots takes in ``steps`` steps
+    that each emit one token a slot (prompts cost no step: the fastest the
+    loop can go through its traffic)."""
+    left, taken = [x.max_new for x in items[:clients]], clients
+    for _ in range(steps):
+        for i in range(clients):
+            left[i] -= 1
+            if left[i] == 0:
+                left[i], taken = items[taken].max_new, taken + 1
+    return taken
+
+
+@pytest.mark.parametrize("seed", [SEED, 2**40 + 3])
+def test_closed_loop_outlasts_a_tenfold_rate(seed):
+    """At ten times 509 tokens/s (the cell's median on an H100 once its step
+    turned host-bound), over the window and ten seconds of ramp, the loop
+    takes fewer requests than the traffic holds, so ``Drive`` never runs
+    out."""
+    tr = spec.traffic("chat-closed")
+    seconds = spec.load_benchmark()["run_seconds"] + 10
+    items = traffic_lib.build({**tr, "requests": 4 * tr["requests"]}, 1000, seed, seconds)
+    assert _taken(items, tr["clients"], int(10 * 509 * seconds / tr["clients"])) < tr["requests"]
